@@ -1,0 +1,22 @@
+"""Qwen3-8B — dense, qk_norm + GQA.
+
+[hf:Qwen/Qwen3-8B] per assignment: 36L d_model=4096 32H (GQA kv=8)
+d_ff=12288 vocab=151936, qk_norm enabled, head_dim=128.
+"""
+from repro_torch.config import ModelConfig, register_arch
+
+CONFIG = register_arch(ModelConfig(
+    name="qwen3-8b",
+    family="dense",
+    num_layers=36,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=12288,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1000000.0,
+    act="silu",
+    source="hf:Qwen/Qwen3-8B",
+))

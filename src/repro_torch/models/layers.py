@@ -1,0 +1,133 @@
+"""Shared neural-net building blocks: norms, RoPE, MLPs, embeddings.
+
+Parameters are plain dicts of tensors in the reference package's layout
+(weights ``(in, out)``); functions consume them. Matmuls of bf16 weights
+accumulate in float32 (cuBLAS and the CPU kernels do) and round to the
+activation dtype, as the reference's ``preferred_element_type`` einsums
+do; the LM head returns float32 logits.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# init helpers (the port's own seeded init, for standalone runs)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape, dtype, device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Normal init scaled by 1/sqrt(in_dim); ``shape`` ends in (in, out)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+
+def init_embeddings(gen: torch.Generator, cfg, device):
+    """Token embeddings (and an untied LM head), the reference's layout."""
+    dt = torch_dtype(cfg.dtype)
+    p = {"tok": dense_init(gen, (cfg.vocab_size, cfg.d_model), dt, device,
+                           scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt,
+                               device)
+    return p
+
+
+def matmul(x, w):
+    """x @ w, f32 accumulation, result in x's dtype."""
+    return torch.matmul(x, w).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, weight, eps: float = 1e-5):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device="cpu"):
+    """Inverse frequencies for rotary embeddings (half-dim)."""
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def rope_tables(positions, head_dim: int, theta: float):
+    """(cos, sin) of the rotary angles, each (..., S, 1, hd/2); computed
+    once per forward and shared by every layer's q and k."""
+    inv_freq = rope_frequencies(head_dim, theta, positions.device)
+    angles = positions[..., :, None].float() * inv_freq   # (..., S, hd/2)
+    return (torch.cos(angles)[..., :, None, :],
+            torch.sin(angles)[..., :, None, :])
+
+
+def apply_rope(x, positions, theta: float, tables=None):
+    """Rotate pairs. x: (..., seq, heads, head_dim); positions: (..., seq).
+    ``tables``: this forward's :func:`rope_tables`, if already made."""
+    if theta <= 0:
+        return x
+    cos, sin = tables if tables is not None else \
+        rope_tables(positions, x.shape[-1], theta)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# ---------------------------------------------------------------------------
+
+
+def apply_mlp(params, x, act: str):
+    if act == "silu":
+        gate = matmul(x, params["w_gate"])
+        up = matmul(x, params["w_up"])
+        h = F.silu(gate.float()).to(x.dtype) * up
+    elif act == "gelu":
+        h = F.gelu(matmul(x, params["w_up"]).float(),
+                   approximate="tanh").to(x.dtype)
+    else:
+        raise ValueError(f"unknown act {act!r}")
+    return torch.matmul(h, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# embeddings / LM head
+# ---------------------------------------------------------------------------
+
+
+def embed(params, tokens):
+    tok = params["tok"]
+    return tok.index_select(0, tokens.reshape(-1)).reshape(
+        *tokens.shape, tok.shape[-1])
+
+
+def lm_head(params, x):
+    """Logits in float32 (bf16 products are exact in f32; the sum runs in
+    f32), so 49k logits are not rounded to bf16's three digits."""
+    w = params.get("head")
+    if w is None:
+        w = params["tok"].T
+    return torch.matmul(x.float(), w.float())
