@@ -18,6 +18,9 @@ Registered backends:
   ``fused``             the whole decision in one kernel pass — penalties →
                         temperature → truncation-first filter → Gumbel draw
                         (``kernels/csrc/fused.cu``)
+  ``gumbel``            single-pass Gumbel-max draw for unfiltered rows
+                        (``kernels/csrc/gumbel.cu``), truncation-first for
+                        filtered ones
 
 Backends agree bit for bit on greedy rows and single-token supports, and
 in distribution elsewhere.
@@ -30,6 +33,7 @@ import torch
 
 from repro_torch.core import penalties as pen
 from repro_torch.core.sampling import (SamplingParams, sample_reference,
+                                       temperature_scale,
                                        truncation_first_sample)
 
 
@@ -182,4 +186,42 @@ class FusedBackend(SamplerBackend):
             block_v=self.block_v)
         stats = DecisionStats(_const(1.0, z), alpha.mean(),
                               1.0 - exact.float().mean())
+        return tokens, stats
+
+
+@register_backend("gumbel")
+class GumbelBackend(SamplerBackend):
+    """Single-pass sampler: unfiltered rows draw ``argmax(z/τ + Gumbel)``
+    in one read of the logits (``ops.fused_gumbel_argmax``: the
+    ``gumbel_argmax`` kernel on CUDA); filtered rows take the
+    truncation-first path. As in the reference, both draws run for every
+    row and the row's controls select.
+
+    The Gumbel noise is keyed on ``(seed, step_idx)`` and the operand row:
+    reproducible run to run, but not invariant to the schedule. ``seed32``
+    wraps in int32 as the reference's does; the kernel takes its uint32
+    bits, so ``step_idx`` must be a host integer (never read back from the
+    device).
+    """
+
+    name = "gumbel"
+
+    def __init__(self, *, k_cap: int = 1024, seed: int = 0, **_):
+        self.k_cap = k_cap
+        self.seed = seed
+
+    def step(self, z, params, uniforms, *, step_idx):
+        from repro_torch.kernels import ops
+        zs = temperature_scale(z, params.temperature)
+        seed32 = (int(self.seed) * 1000003 + int(step_idx)) & 0xFFFFFFFF
+        fast = ops.fused_gumbel_argmax(zs, seed32)
+        res = truncation_first_sample(z, params, uniforms[:, 1],
+                                      k_cap=self.k_cap)
+        has_filter = (params.top_k > 0) | (params.top_p < 1.0) | \
+            (params.min_p > 0.0)
+        greedy = zs.argmax(-1).to(torch.int32)
+        tokens = torch.where(params.temperature <= 0.0, greedy,
+                             torch.where(has_filter, res.tokens, fast))
+        stats = DecisionStats((~has_filter).float().mean(), _const(1.0, z),
+                              (has_filter & ~res.exact).float().mean())
         return tokens, stats

@@ -3,7 +3,8 @@
 The engine's iteration (paper §4.2, DESIGN.md §2):
 
   ⓪ scheduler.schedule()            — retire / admit / emit scheduling output
-  ① prefill newly admitted requests — monolithic, rows inserted into slots
+  ① prefill newly admitted requests — monolithic rows inserted into slots,
+                                      or one prompt chunk per mid-prefill row
   ②③ decode forward                 — logits (B, V) f32
   ④⑤ decision plane                 — penalties + sampling on the device
   ⑥ scheduler.commit()              — tokens back into request state
@@ -22,12 +23,25 @@ speculative decode whose token is dropped at commit. With
 Determinism: uniforms are keyed on (request-id, output position), drawn
 on the host bit-equal to the reference's ``jax.random`` stream, so each
 request's tokens are the same in overlapped and sequential mode and do
-not depend on slot placement or admission timing.
+not depend on slot placement or admission timing. Exception: the
+``gumbel`` backend keys its fast path on the global iteration index, so
+its streams are reproducible run to run but depend on the schedule.
 
-This slice runs the contiguous KV cache, the decision plane on the
-device, and monolithic prefill. Paged KV, chunked prefill, host/adaptive
-placement, autotuning and KV migration raise ``NotImplementedError``
-naming their ROADMAP item; there is no tracer or metrics registry yet.
+**Paged KV** (``cache="paged"``): a block pool replaces the per-slot
+cache. The scheduler admits by free blocks (``ceil((prompt+max_new) /
+block_size)``), blocks are allocated as sequences grow, and pool
+exhaustion preempts the most recently admitted request (blocks freed,
+re-queued at the front, recompute-on-resume). Each paged decode step
+uploads the host allocator's block table with a ``non_blocking`` copy;
+nothing is read back. **Chunked prefill** (``prompt_chunk > 0``): long
+prompts are prefilled one (B, C) chunk per iteration beside the decode
+rows; a row finishing its prompt samples its first token in the chunk
+program, and that token reaches the host through the pending queue, like
+a decode step's.
+
+Host/adaptive placement, autotuning and KV migration raise
+``NotImplementedError`` naming their ROADMAP item; there is no tracer or
+metrics registry yet.
 """
 from __future__ import annotations
 
@@ -35,7 +49,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Iterator, List, Optional
+from typing import Deque, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +59,11 @@ from repro_torch.core import penalties as pen
 from repro_torch.core.decision_plane import DecisionPlane
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.device import resolve_device, to_device
+from repro_torch.engine.paged_cache import (BlockAllocator, PagedCacheConfig,
+                                            init_paged_cache)
 from repro_torch.engine.request import Request, RequestState
-from repro_torch.engine.scheduler import Scheduler
+from repro_torch.engine.scheduler import ChunkTask, Scheduler
+from repro_torch.models.attention import flat_block_indices, scatter_block_kv
 from repro_torch.models.model import Model
 from repro_torch.obs.records import StepRecord
 
@@ -61,10 +78,13 @@ class EngineConfig:
     seed: int = 0
     prompt_bucket: int = 32          # prompts padded to multiples of this
     overlap: bool = True             # double-buffered iteration loop (§2)
-    prompt_chunk: int = 0            # >0: chunked prefill (not ported)
-    priority_admission: bool = True
-    max_admission_wait: int = 64
-    cache: str = "contiguous"        # "paged" is not ported
+    prompt_chunk: int = 0            # >0: chunked prefill width
+    priority_admission: bool = True  # single-chunk prompts admitted first
+    max_admission_wait: int = 64     # aging bound for priority admission
+    cache: str = "contiguous"        # KV layout: "contiguous" | "paged"
+    block_size: int = 16             # paged: tokens per KV block
+    num_blocks: int = 0              # paged pool size; 0 = memory-equal to
+    #                                  the contiguous cache (B * S / bs)
     sampler_mode: str = "device"     # "host"/"adaptive" are not ported
     stats_window: int = 4096         # stats_log ring size
 
@@ -75,10 +95,6 @@ def _unported(what: str, item: int) -> NotImplementedError:
 
 
 def _check_slice(ecfg: EngineConfig) -> None:
-    if ecfg.cache != "contiguous":
-        raise _unported(f"cache={ecfg.cache!r}", 6)
-    if ecfg.prompt_chunk > 0:
-        raise _unported("chunked prefill (prompt_chunk > 0)", 6)
     if ecfg.sampler_mode != "device":
         raise _unported(f"sampler_mode={ecfg.sampler_mode!r}", 8)
 
@@ -178,76 +194,94 @@ def generate_stream(eng, requests: List[Request], max_steps: int = 10_000):
 
 
 def prefill_new_rows(eng, new_requests: List[Request], step_idx: int):
-    """Admission math: bucket and pad the prompts, run the monolithic
-    prefill and sample each row's first token (output position 0).
-    Requests resumed with committed output come with preemption and KV
-    migration (ROADMAP items 6 and 9) and are not admitted here.
+    """Admission math: bucket and pad the requests' contexts, run the
+    monolithic prefill, rebuild resumed rows' prompt/output histogram split
+    (presence/frequency penalties read C_o, Eq. 5) and sample each row's
+    first token at its resume position (``len(output)``, 0 for fresh
+    rows). A resumed request (re-queued by preemption) re-prefills
+    prompt + output.
 
-    Returns ``(first, rows_cache, rows_pstate, rids)`` — ``first`` is the
-    (P,) device token tensor."""
-    if any(r.output for r in new_requests):
-        raise _unported("resuming a request with committed output", 6)
+    Returns ``(first, rows_cache, rows_pstate, lens, bases, rids)`` —
+    ``first`` is the (P,) device token tensor."""
     P = len(new_requests)
-    maxlen = max(r.prompt_len for r in new_requests)
+    ctxs = [r.context_tokens() if r.output else r.prompt
+            for r in new_requests]
+    maxlen = max(len(c) for c in ctxs)
     Sp = min(_bucket(maxlen, eng.ecfg.prompt_bucket), eng.ecfg.max_seq_len)
     toks = np.zeros((P, Sp), np.int32)
     lens = np.zeros((P,), np.int32)
-    for i, r in enumerate(new_requests):
-        c = r.prompt[-Sp:]
+    bases = np.zeros((P,), np.int32)   # next output position per row
+    for i, (r, c) in enumerate(zip(new_requests, ctxs)):
+        c = c[-Sp:]
         toks[i, :len(c)] = c
         lens[i] = len(c)
+        bases[i] = len(r.output)
     dev = eng.device
     logits, rows_cache, rows_pstate = eng._prefill_impl(
         eng.params, to_device(toks, dev), to_device(lens, dev))
     rids = np.array([r.request_id for r in new_requests], np.uint32)
-    sp_rows = SlotParams(P, eng.cfg.vocab_size, dev)
+    # resumed rows: the prefill counted prompt+output as one sequence, but
+    # the penalty state keeps the prompt/output split
+    V = eng.cfg.vocab_size
+    for i, r in enumerate(new_requests):
+        if not r.output:
+            continue
+        rows_pstate.prompt_counts[i] = pen.histogram(
+            to_device(np.asarray(r.prompt, np.int32)[None], dev), V)[0]
+        rows_pstate.output_counts[i] = pen.histogram(
+            to_device(np.asarray(r.output, np.int32)[None], dev), V)[0]
+    sp_rows = SlotParams(P, V, dev)
     for i, r in enumerate(new_requests):
         sp_rows.set_row(i, r.sampling)
     first, rows_pstate, _ = eng.decision.step(
         logits, rows_pstate, sp_rows.as_params(), step_idx,
-        rng_tags=(rids, np.zeros((P,), np.int32)),
-        logit_bias=sp_rows.bias_array())
-    return first, rows_cache, rows_pstate, rids
+        rng_tags=(rids, bases), logit_bias=sp_rows.bias_array())
+    return first, rows_cache, rows_pstate, lens, bases, rids
 
 
 class _HostCopy:
-    """A step's tokens and stats on their way to the host.
+    """A step's tokens (and stats) on their way to the host.
 
     On CUDA the copy into pinned memory is enqueued at dispatch, behind the
     step's own kernels and ahead of the next step's, and an event marks its
     end: the drain waits for this step only. On the CPU the values are
     cloned at dispatch (later in-place updates must not reach them)."""
 
-    def __init__(self, tokens: torch.Tensor, stats):
-        stats = torch.stack([s.float() for s in stats])
+    def __init__(self, tokens: torch.Tensor, stats=None):
+        vals = [tokens]
+        if stats is not None:
+            vals.append(torch.stack([s.float() for s in stats]))
         self.event = None
         if tokens.is_cuda:
-            self.tokens = torch.empty(tokens.shape, dtype=tokens.dtype,
-                                      pin_memory=True)
-            self.stats = torch.empty(stats.shape, dtype=stats.dtype,
-                                     pin_memory=True)
-            self.tokens.copy_(tokens, non_blocking=True)
-            self.stats.copy_(stats, non_blocking=True)
+            self.vals = [torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                         for v in vals]
+            for dst, src in zip(self.vals, vals):
+                dst.copy_(src, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
         else:
-            self.tokens = tokens.clone()
-            self.stats = stats
+            self.vals = [v.clone() for v in vals]
 
     def wait(self):
+        """(tokens, stats or None) as numpy arrays."""
         if self.event is not None:
             self.event.synchronize()
-        return self.tokens.numpy(), self.stats.numpy()
+        out = [v.numpy() for v in self.vals]
+        return out[0], (out[1] if len(out) > 1 else None)
 
 
 @dataclass
 class _Pending:
-    """One dispatched-but-uncommitted decode iteration."""
+    """One dispatched-but-uncommitted iteration: ``kind="decode"`` a decode
+    step, ``kind="first"`` the first tokens of rows that finished their
+    prompt in a chunk program (``finishers``: (slot, request))."""
 
     fetch: _HostCopy
-    step: int
-    active: np.ndarray                          # (B,) bool snapshot
+    kind: str = "decode"
+    step: int = -1
+    active: Optional[np.ndarray] = None         # (B,) bool snapshot
     slot_request: List[Optional[Request]] = field(default_factory=list)
+    finishers: List[Tuple[int, Request]] = field(default_factory=list)
 
 
 class Engine:
@@ -268,17 +302,49 @@ class Engine:
         self.model = Model(model_cfg)
         self.params = params
         B, S = engine_cfg.max_batch, engine_cfg.max_seq_len
+        # chunked prefill and the paged cache are gated to full-causal
+        # decoders (the chunk and the gathered block view reuse the cached
+        # attention masks)
+        full_causal = not model_cfg.is_encdec and not model_cfg.sliding_window
+        chunk = engine_cfg.prompt_chunk if (
+            engine_cfg.prompt_chunk > 0 and full_causal) else 0
+        # a chunk's slab write needs lens + C <= max_seq_len even for the
+        # last partial chunk, i.e. C <= max_seq_len // 2
+        assert chunk <= S // 2, (
+            f"prompt_chunk={chunk} must be <= max_seq_len//2 ({S // 2})")
+        assert engine_cfg.cache in ("contiguous", "paged"), engine_cfg.cache
+        self._paged = engine_cfg.cache == "paged"
+        kv_gate = None
+        if self._paged:
+            assert full_causal, "cache='paged': full-causal decoders only"
+            bs = engine_cfg.block_size
+            assert S % bs == 0, (
+                f"max_seq_len={S} must be a multiple of block_size={bs} so "
+                "the gathered block view is shaped exactly like the "
+                "contiguous cache")
+            mb = S // bs
+            self.pcfg = PagedCacheConfig(
+                block_size=bs, num_blocks=engine_cfg.num_blocks or B * mb,
+                max_blocks_per_seq=mb)
+            self.alloc = BlockAllocator(self.pcfg, B)
+            # host mirror of each slot's dispatch-time cache length (the
+            # device `len` is in flight under the overlapped loop)
+            self._slot_len = np.zeros((B,), np.int64)
+            kv_gate = self._kv_gate
         self.scheduler = Scheduler(
-            B, prompt_chunk=0,
+            B, prompt_chunk=chunk,
             priority_admission=engine_cfg.priority_admission,
             max_admission_wait=engine_cfg.max_admission_wait,
-            max_prompt=S, on_free=self._on_slot_free)
+            max_prompt=max(chunk, S - chunk), kv_gate=kv_gate,
+            on_free=self._on_slot_free)
         self.decision = DecisionPlane(
             model_cfg.vocab_size, algorithm=engine_cfg.algorithm,
             shvs=engine_cfg.shvs, hot_set=hot_set,
             k_cap=min(engine_cfg.k_cap, model_cfg.vocab_size),
             seed=engine_cfg.seed, device=self.device)
-        self.cache = self.model.init_cache(B, S, device=self.device)
+        self.cache = (init_paged_cache(model_cfg, B, self.pcfg,
+                                       device=self.device) if self._paged
+                      else self.model.init_cache(B, S, device=self.device))
         self.pstate = self.decision.init_state(B)
         self.last_tokens = torch.zeros((B,), dtype=torch.int32,
                                        device=self.device)
@@ -316,16 +382,149 @@ class Engine:
         pstate = pen.init_state(P, self.cfg.vocab_size, tokens, true_lens)
         return logits, cache, pstate
 
+    def _chunk_impl(self, params, cache, pstate, toks, counts, mask, finish,
+                    sparams, bias, nonces, last_tokens, step):
+        """One prompt chunk for every mid-prefill row; rows finishing their
+        prompt sample their first token (position 0) in the same program."""
+        logits, cache = self.model.prefill_chunk(params, toks, cache, counts,
+                                                 mask)
+        tokens, pstate, _ = self.decision.step(
+            logits, pstate, sparams, step, active=finish,
+            rng_tags=(nonces, np.zeros(nonces.shape, np.int32)),
+            logit_bias=bias)
+        tokens = torch.where(finish, tokens, 0)
+        last_tokens = torch.where(finish, tokens, last_tokens)
+        return tokens, last_tokens, cache, pstate
+
+    # -- paged KV bookkeeping -------------------------------------------------
+    def _blocks_for(self, req: Request) -> int:
+        """Worst-case block demand of a request — the admission unit.
+        Invariant across preemption/resume: prompt + output + remaining
+        always sums to prompt_len + max_new_tokens."""
+        total = min(req.prompt_len + req.max_new_tokens,
+                    self.ecfg.max_seq_len)
+        return self.alloc.blocks_needed(total)
+
+    def _kv_gate(self, req: Request, round_admits: List[Request]) -> bool:
+        """Block-based admission: a request enters only when its worst-case
+        blocks are free, net of the worst-case demand of requests admitted
+        earlier this round."""
+        reserved = sum(self._blocks_for(r) for r in round_admits)
+        return self._blocks_for(req) <= self.alloc.num_free - reserved
+
     def _on_slot_free(self, slot: int, req: Request) -> None:
-        """A slot gave up its claim: reset its sampling-contract row so
-        nothing stale is dispatched for the slot's next occupant."""
+        """A slot gave up its claim (retire or preemption): reset its
+        sampling-contract row so nothing stale is dispatched for the slot's
+        next occupant, and release its KV blocks (paged mode)."""
         self._sp.reset_row(slot)
+        if self._paged:
+            self.alloc.release(slot)
+            self._slot_len[slot] = 0
+
+    def _push_block_table(self) -> None:
+        """Upload the host allocator's block table (a non_blocking copy
+        from pageable memory: it never waits on the stream)."""
+        cache = dict(self.cache)
+        cache["block_table"] = to_device(
+            self.alloc.table(self.ecfg.max_batch), self.device)
+        self.cache = cache
+
+    def _pick_victim(self) -> Optional[Request]:
+        """Preemption victim: the most recently admitted slotted request
+        (ties broken by slot for determinism)."""
+        cands = [r for r in self.scheduler.slots if r is not None and
+                 r.state in (RequestState.RUNNING, RequestState.PREFILLING)]
+        if len(cands) <= 1:
+            return None
+        return max(cands, key=lambda r: (r.admit_step, r.slot))
+
+    def _ensure_blocks(self, slot: int, target_len: int, plan=None) -> bool:
+        """Grow ``slot``'s allocation to cover ``target_len`` tokens,
+        preempting under pool pressure. Returns False iff the slot's own
+        request was evicted (it frees itself and skips this iteration)."""
+        if self.alloc.blocks_needed(target_len) > \
+                self.pcfg.max_blocks_per_seq:
+            raise RuntimeError(
+                f"sequence of {target_len} tokens exceeds cache capacity "
+                f"({self.pcfg.max_blocks_per_seq} blocks per sequence)")
+        owner = self.scheduler.slots[slot]
+        while True:
+            try:
+                self.alloc.ensure(slot, target_len)
+                return True
+            except RuntimeError:
+                pass
+            # commit in-flight iterations and retire what finished: their
+            # released blocks may already cover the demand
+            self.flush()
+            if self.scheduler.slots[slot] is not owner:
+                return False       # the flush retired this very row
+            try:
+                self.alloc.ensure(slot, target_len)
+                return True
+            except RuntimeError:
+                pass
+            victim = self._pick_victim()
+            if victim is None:
+                raise RuntimeError(
+                    "paged KV pool cannot hold a single sequence "
+                    f"(need {self.alloc.blocks_needed(target_len)} blocks, "
+                    f"pool={self.pcfg.num_blocks})")
+            vslot = victim.slot
+            self.scheduler.preempt(victim)
+            if plan is not None:
+                plan.active_slots[vslot] = False
+                plan.slot_request[vslot] = None
+            if vslot == slot:
+                return False
+
+    def _decode_activity(self) -> np.ndarray:
+        return np.array(
+            [s is not None and s.state is RequestState.RUNNING
+             and not s.should_stop() for s in self.scheduler.slots])
+
+    def _prepare_paged_decode(self, plan) -> np.ndarray:
+        """Ensure every decoding row has a block for its next token,
+        preempting the lowest-priority requests on exhaustion; returns the
+        refreshed activity mask (a fixed point: ensuring one row may evict
+        another already-checked one). A row whose next token would exceed
+        the per-sequence capacity stops (``Request.truncated``)."""
+        while True:
+            active = self._decode_activity()
+            aborted = False
+            for b in np.flatnonzero(active):
+                s = self.scheduler.slots[b]
+                if s is None or s.state is not RequestState.RUNNING:
+                    aborted = True      # evicted mid-sweep
+                    break
+                if int(self._slot_len[b]) + 1 > self.ecfg.max_seq_len:
+                    s.truncated = True  # capacity stop, not pool pressure
+                    aborted = True
+                    break
+                if not self._ensure_blocks(
+                        int(b), int(self._slot_len[b]) + 1, plan):
+                    aborted = True      # a row was evicted mid-sweep
+                    break
+            if not aborted and np.array_equal(self._decode_activity(),
+                                              active):
+                return active
 
     # -- public API -----------------------------------------------------------
     @locked_api
     def submit(self, requests: List[Request]) -> None:
         if self._closed:
             raise RuntimeError("Engine is closed")
+        if self._paged:
+            # validate the whole batch before enqueueing any of it: the
+            # gate would skip a request the pool can never cover on every
+            # round (silent starvation)
+            for r in requests:
+                if self._blocks_for(r) > self.pcfg.num_blocks:
+                    raise ValueError(
+                        f"request {r.request_id} needs {self._blocks_for(r)} "
+                        f"KV blocks (prompt {r.prompt_len} + max_new "
+                        f"{r.max_new_tokens}) > pool of "
+                        f"{self.pcfg.num_blocks}")
         for r in requests:
             self.scheduler.submit(r)
 
@@ -341,11 +540,18 @@ class Engine:
         plan = self.scheduler.schedule()
         if plan.new_requests:
             self._admit(plan.new_requests)
+        if plan.new_chunked:
+            self._admit_chunked(plan.new_chunked)
+        if plan.chunks:
+            self._run_chunks(plan.chunks)
         # refresh decode activity: a prompt's first token may already
-        # satisfy the stop condition
-        plan.active_slots = np.array(
-            [s is not None and s.state is RequestState.RUNNING
-             and not s.should_stop() for s in self.scheduler.slots])
+        # satisfy the stop condition; chunk finishers join the decode batch
+        plan.active_slots = self._decode_activity()
+        if self._paged and plan.active_slots.any():
+            # grow each decoding row's allocation by one token (preempting
+            # under pressure) and publish the refreshed block table
+            plan.active_slots = self._prepare_paged_decode(plan)
+            self._push_block_table()
         dispatched = bool(plan.active_slots.any())
         if dispatched:
             # host arrays are copied on upload: the engine mutates
@@ -361,12 +567,14 @@ class Engine:
                 active=plan.active_slots.copy(),
                 slot_request=list(plan.slot_request)))
             self._pos += plan.active_slots
+            if self._paged:
+                self._slot_len += plan.active_slots
         # drain: sequential mode syncs now; overlapped mode keeps exactly
         # one decode in flight so the device never waits on the host
         keep = 1 if (self.ecfg.overlap and dispatched) else 0
         rec: Optional[StepRecord] = None
         while len(self._pending) > keep:
-            rec = self._drain_one()
+            rec = self._drain_one() or rec
         return rec if rec is not None else {}
 
     @locked_api
@@ -416,12 +624,17 @@ class Engine:
         raise _unported("KV migration (import_request)", 9)
 
     # -- commit ---------------------------------------------------------------
-    def _drain_one(self) -> StepRecord:
-        """Wait for the oldest pending step's tokens and commit them — the
-        only place a decode iteration blocks on the device."""
+    def _drain_one(self) -> Optional[StepRecord]:
+        """Wait for the oldest pending result's tokens and commit them — the
+        only place an iteration blocks on the device. A chunk program's
+        first tokens are recorded and make no StepRecord."""
         ent = self._pending.pop(0)
         toks_np, stats = ent.fetch.wait()
         now = time.perf_counter()
+        if ent.kind == "first":
+            for slot, req in ent.finishers:
+                req.record_token(int(toks_np[slot]), now)
+            return None
         self.scheduler.commit(toks_np, ent.slot_request, ent.active, now=now)
         rec = StepRecord(step=ent.step, batch=int(ent.active.sum()),
                          accept_rate=float(stats[0]),
@@ -446,12 +659,18 @@ class Engine:
     def _admit(self, new_requests: List[Request]) -> None:
         """Prefill new requests (padded batch) and insert their rows into
         the batch state at their slots (in place, behind any decode still
-        running on the stream)."""
-        first, rows_cache, rows_pstate, rids = \
+        running on the stream). A resumed request (re-queued by preemption
+        with committed output) re-prefills prompt + output and samples its
+        next token at output position len(output): the (request, position)
+        RNG keying continues its stream."""
+        first, rows_cache, rows_pstate, lens, bases, rids = \
             prefill_new_rows(self, new_requests, self.scheduler.step)
         slots = to_device(np.array([r.slot for r in new_requests], np.int64),
                           self.device)
-        _insert_rows(self.cache, rows_cache, slots)
+        if self._paged:
+            self._paged_insert(new_requests, rows_cache, lens)
+        else:
+            _insert_rows(self.cache, rows_cache, slots)
         self.pstate.prompt_counts[slots] = rows_pstate.prompt_counts
         self.pstate.output_counts[slots] = rows_pstate.output_counts
         self.last_tokens = self.last_tokens.index_put((slots,), first)
@@ -460,8 +679,113 @@ class Engine:
         for i, r in enumerate(new_requests):
             self._sp.set_row(r.slot, r.sampling)
             self._nonce[r.slot] = rids[i]
-            self._pos[r.slot] = 1
+            self._pos[r.slot] = int(bases[i]) + 1
             r.record_token(int(first_np[i]), now)
+
+    def _paged_insert(self, new_requests: List[Request], rows_cache,
+                      lens: np.ndarray) -> None:
+        """Scatter freshly prefilled contiguous rows ((L, P, Sc, kv, hd))
+        into the block pool: allocate each slot's blocks, publish the
+        table, then write the first lens[p] entries of row p into its
+        slot's blocks, in place."""
+        for i, r in enumerate(new_requests):
+            self.alloc.release(r.slot)         # stale claims (defensive)
+            self.alloc.ensure(r.slot, int(lens[i]))
+            self._slot_len[r.slot] = int(lens[i])
+        self._push_block_table()
+        d = self.device
+        slot_ids = np.asarray([r.slot for r in new_requests], np.int64)
+        row_bt = to_device(self.alloc.table(self.ecfg.max_batch)[slot_ids], d)
+        true_lens = to_device(lens, d)
+        Sc = rows_cache["k"].shape[2]
+        valid = torch.arange(Sc, device=d)[None, :] < true_lens[:, None]
+        flat = flat_block_indices(row_bt, torch.zeros_like(true_lens), valid,
+                                  self.pcfg.block_size, self.pcfg.num_blocks)
+        scatter_block_kv(self.cache["k_pool"], rows_cache["k"], flat)
+        scatter_block_kv(self.cache["v_pool"], rows_cache["v"], flat)
+        self.cache["len"][to_device(slot_ids, d)] = true_lens
+
+    def _admit_chunked(self, new_chunked: List[Request]) -> None:
+        """Claim slots for chunked-prefill requests: reset the rows' cache
+        offsets and seed their penalty state with the full-prompt histogram
+        (available up front — Eq. 5 is position-independent)."""
+        P = len(new_chunked)
+        windows = [r.prompt[r.prompt_offset:] for r in new_chunked]
+        maxlen = max(len(w) for w in windows)
+        toks = np.zeros((P, maxlen), np.int32)
+        lens = np.zeros((P,), np.int32)
+        for i, w in enumerate(windows):
+            toks[i, :len(w)] = w
+            lens[i] = len(w)
+        d = self.device
+        rows_pstate = pen.init_state(P, self.cfg.vocab_size,
+                                     to_device(toks, d), to_device(lens, d),
+                                     device=d)
+        slots = to_device(np.array([r.slot for r in new_chunked], np.int64),
+                          d)
+        self.pstate.prompt_counts[slots] = rows_pstate.prompt_counts
+        self.pstate.output_counts[slots] = rows_pstate.output_counts
+        self.cache["len"][slots] = 0
+        for r in new_chunked:
+            self._sp.set_row(r.slot, r.sampling)
+            self._nonce[r.slot] = np.uint32(r.request_id)
+            self._pos[r.slot] = 0
+            if self._paged:
+                self.alloc.release(r.slot)     # stale claims (defensive)
+                self._slot_len[r.slot] = 0
+
+    def _run_chunks(self, chunks: List[ChunkTask]) -> None:
+        """Run one prompt chunk per mid-prefill slot (one (B, C) program);
+        rows that complete their prompt sample their first token and join
+        the decode batch this iteration."""
+        if self._paged:
+            # grow each chunk row's allocation to cover its slab before
+            # dispatch; a task whose request was evicted during another
+            # task's recovery (or its own) is dropped — re-admission
+            # restarts its prefill
+            kept: List[ChunkTask] = []
+            for task in chunks:
+                if self.scheduler.slots[task.slot] is not task.request:
+                    continue
+                need = int(self._slot_len[task.slot]) + task.end - task.start
+                if self._ensure_blocks(task.slot, need):
+                    kept.append(task)
+            chunks = [t for t in kept
+                      if self.scheduler.slots[t.slot] is t.request]
+            if not chunks:
+                return
+            self._push_block_table()
+        B = self.ecfg.max_batch
+        C = self.scheduler.prompt_chunk
+        toks = np.zeros((B, C), np.int32)
+        counts = np.zeros((B,), np.int32)
+        mask = np.zeros((B,), bool)
+        finish = np.zeros((B,), bool)
+        finishers: List[Tuple[int, Request]] = []
+        for task in chunks:
+            seg = task.request.prompt[task.start:task.end]
+            toks[task.slot, :len(seg)] = seg
+            counts[task.slot] = len(seg)
+            mask[task.slot] = True
+            if task.final:
+                finish[task.slot] = True
+                finishers.append((task.slot, task.request))
+        d = self.device
+        first, self.last_tokens, self.cache, self.pstate = self._chunk_impl(
+            self.params, self.cache, self.pstate, to_device(toks, d),
+            to_device(counts, d), to_device(mask, d), to_device(finish, d),
+            self._sp.as_params(), self._sp.bias_array(), self._nonce.copy(),
+            self.last_tokens, self.scheduler.step)
+        if self._paged:
+            for task in chunks:
+                self._slot_len[task.slot] += task.end - task.start
+        for slot, _ in finishers:
+            self._pos[slot] = 1
+        if finishers:
+            # first tokens reach the host through the pending queue, by the
+            # same pinned copy and event as a decode step's
+            self._pending.append(_Pending(fetch=_HostCopy(first), kind="first",
+                                          finishers=finishers))
 
 
 def _insert_rows(batch_cache, rows_cache, slots) -> None:

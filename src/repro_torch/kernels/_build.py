@@ -31,7 +31,7 @@ from typing import List, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("penalty.cu", "shvs.cu", "fused.cu")
+SOURCES = ("penalty.cu", "shvs.cu", "fused.cu", "gumbel.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH + ["-O3", "-std=c++17", "-fmad=false",
                         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

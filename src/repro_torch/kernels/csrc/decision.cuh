@@ -1,5 +1,5 @@
 // Shared device code of the decision-plane kernels (penalty.cu, shvs.cu,
-// fused.cu). Built with -fmad=false and without fast-math: every product
+// fused.cu, gumbel.cu). Built with -fmad=false and without fast-math: every product
 // and sum rounds on its own, exactly as the separate elementwise ops of the
 // plain PyTorch versions do, and expf/logf are the accurate libdevice ones.
 #pragma once
@@ -8,6 +8,36 @@
 #include <stdint.h>
 
 #define REPRO_NEG_INF (-1e30f)
+
+// Order-preserving map of float bits; -0 and +0 tie, as in a stable sort.
+__device__ __forceinline__ uint32_t ord_bits(float v) {
+  const uint32_t b = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_ord(uint32_t o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
+}
+
+// Packed key: value order in the high word, the inverted column in the low
+// word, so the largest key is "largest value, lowest column first".
+__device__ __forceinline__ uint64_t sort_key(float v, int j) {
+  return ((uint64_t)ord_bits(v) << 32) | (uint64_t)(0xFFFFFFFFu - (uint32_t)j);
+}
+
+// ref._hash_uniform(seed, b, v), bit for bit. The result lies in (0, 1]:
+// the top 128 hash values round to 2^32 in the uint32 -> f32 conversion,
+// so u == 1.0 there, as in the reference.
+__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t b,
+                                              uint32_t v) {
+  uint32_t x = (b * 2654435761u) ^ (v * 40503u) ^ seed;
+  x ^= x >> 16;
+  x *= 2246822519u;
+  x ^= x >> 13;
+  x *= 3266489917u;
+  x ^= x >> 16;
+  return ((float)x + 0.5f) * (1.0f / 4294967296.0f);
+}
 
 // Eq. 1 penalties, then / max(temperature, 1e-6): op for op as
 // ref.penalty_ref, so the result is bit-equal to it.

@@ -31,32 +31,6 @@
 #define FUSED_MAX_K 2048
 #define FUSED_DRAW_SALT 0x46555345u
 
-// order-preserving map of float bits; -0 and +0 tie, as in a stable sort
-__device__ __forceinline__ uint32_t ord_bits(float v) {
-  const uint32_t b = __float_as_uint(v == 0.0f ? 0.0f : v);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_ord(uint32_t o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
-}
-
-__device__ __forceinline__ uint64_t sort_key(float v, int j) {
-  return ((uint64_t)ord_bits(v) << 32) | (uint64_t)(0xFFFFFFFFu - (uint32_t)j);
-}
-
-// ref._hash_uniform(seed, b, v), bit for bit
-__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t b,
-                                              uint32_t v) {
-  uint32_t x = (b * 2654435761u) ^ (v * 40503u) ^ seed;
-  x ^= x >> 16;
-  x *= 2246822519u;
-  x ^= x >> 13;
-  x *= 3266489917u;
-  x ^= x >> 16;
-  return ((float)x + 0.5f) * (1.0f / 4294967296.0f);
-}
-
 struct Row {
   const float* z;
   const int* cp;

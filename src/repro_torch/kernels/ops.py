@@ -9,9 +9,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels import fused_kernel, penalty_kernel, ref, shvs_kernel
+from repro_torch.kernels import (fused_kernel, gumbel_kernel, penalty_kernel,
+                                 ref, shvs_kernel)
 
-KERNELS = (penalty_kernel, shvs_kernel, fused_kernel)
+KERNELS = (penalty_kernel, shvs_kernel, fused_kernel, gumbel_kernel)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -54,3 +55,12 @@ def fused_sample(logits, counts_p, counts_o, params, u_row, hot_mask, *,
     if logits.device.type == "cpu":
         return ref.fused_sample_ref(*args, k_cap=k_cap, block_v=block_v)
     return fused_kernel.fused_sample(*args, k_cap=k_cap, block_v=block_v)
+
+
+def fused_gumbel_argmax(z, seed: int):
+    """Single-pass Gumbel-max draw ``argmax_v(z + G(hash(seed, b, v)))`` on
+    (B, V) f32 logits; ``seed`` is the uint32 bits of the reference's int32
+    seed. Returns tokens (B,) int32."""
+    if z.device.type == "cpu":
+        return ref.gumbel_argmax_ref(z, seed)
+    return gumbel_kernel.gumbel_argmax(z, seed)

@@ -54,10 +54,12 @@ def shvs_mass_ref(z, hot_mask):
 
 
 def _hash_uniform(seed, b, v):
-    """Deterministic per-(seed, row, col) uniform in (0, 1) from a 32-bit
-    integer hash (xorshift-mix), bit-equal to the reference's. uint32
-    arithmetic is done in int64 and masked to 32 bits (a product's low
-    32 bits survive int64 wrap-around)."""
+    """Deterministic per-(seed, row, col) uniform in (0, 1], with 1.0 at the
+    top 128 hash values, from a 32-bit integer hash (xorshift-mix),
+    bit-equal to the reference's. uint32 arithmetic is done in int64 and
+    masked to 32 bits (a product's low 32 bits survive int64 wrap-around).
+    The uint32 -> f32 conversion rounds hash values >= 0xFFFFFF80 up to
+    2^32, so u == 1.0 there exactly, as in the reference."""
     b = torch.as_tensor(b).to(torch.int64) & _M32
     v = torch.as_tensor(v).to(torch.int64) & _M32
     x = ((b * 2654435761) ^ (v * 40503) ^ (int(seed) & _M32)) & _M32
@@ -66,8 +68,25 @@ def _hash_uniform(seed, b, v):
     x = x ^ (x >> 13)
     x = (x * 3266489917) & _M32
     x = x ^ (x >> 16)
-    # (0, 1): add 0.5 then scale so zero maps off the boundary
     return (x.float() + 0.5) * (1.0 / 4294967296.0)
+
+
+def gumbel_argmax_ref(z, seed):
+    """Single-pass categorical draw via the Gumbel-max trick:
+    ``argmax_v(z_v + G_v)``, ``G_v = -log(-log(U_v))`` with ``U_v =
+    _hash_uniform(seed, b, v)`` for row b and column v of the operand. The
+    first maximum wins; a NaN wins (the first NaN first), as in
+    ``jnp.argmax``. A column with U == 1.0 gets G = +inf and wins whatever
+    its logit (the reference's hash does the same).
+
+    z: (B, V) f32; seed: the uint32 bits of the reference's int32 seed.
+    Returns tokens (B,) int32."""
+    B, V = z.shape
+    b = torch.arange(B, device=z.device)[:, None]
+    v = torch.arange(V, device=z.device)[None, :]
+    u = _hash_uniform(seed, b, v)
+    g = -torch.log(-torch.log(u))
+    return (z + g).argmax(-1).to(torch.int32)
 
 
 def _u32_from_uniform(u):

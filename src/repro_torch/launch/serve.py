@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --reduced --device cpu --requests 4 --max-new 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+        --algorithm gumbel --cache paged --prompt-chunk 8 --long-prompts
 
 The driver streams tokens through ``Engine.generate()`` (events fire as
 tokens commit) and prints a batch report: throughput, TTFT/TPOT
@@ -10,9 +12,9 @@ percentiles, and each request's ``finish_reason``. Weights are a seeded
 random init in the model's dtype, made on the device. ``--device``
 defaults to ``cuda`` and fails without a card.
 
-Flags of the reference driver that this slice does not serve (paged KV,
-chunked prefill, pipeline stages, host sampling, gateway, disaggregation,
-tracing) raise ``NotImplementedError`` naming their ROADMAP item.
+Flags of the reference driver that the port does not serve yet (pipeline
+stages, host sampling, gateway, disaggregation, tracing) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ from repro_torch.models.model import Model
 
 def build_engine(arch: str, reduced: bool, algorithm: str, batch: int,
                  max_seq: int, seed: int = 0, overlap: bool = True,
+                 prompt_chunk: int = 0, cache: str = "contiguous",
+                 block_size: int = 16, num_blocks: int = 0,
                  device="cuda") -> Engine:
     """An engine over a seeded random init of ``arch`` on ``device``."""
     dev = resolve_device(device)
@@ -44,18 +48,25 @@ def build_engine(arch: str, reduced: bool, algorithm: str, batch: int,
                         shvs=SHVSConfig(hot_size=min(1024,
                                                      cfg.vocab_size // 4)),
                         k_cap=min(256, cfg.vocab_size), seed=seed,
-                        overlap=overlap)
+                        overlap=overlap, prompt_chunk=prompt_chunk,
+                        cache=cache, block_size=block_size,
+                        num_blocks=num_blocks)
     return Engine(cfg, params, ecfg, device=dev)
 
 
 def synth_requests(n: int, vocab: int, max_new: int, rng_seed: int = 0,
-                   seed=None, greedy: bool = False, stop_sequences=()):
+                   long_prompts: bool = False, seed=None, greedy: bool = False,
+                   stop_sequences=()):
     """The reference driver's synthetic batch (the same prompts for the same
-    arguments; its long-prompt mix waits for chunked prefill)."""
+    arguments); ``long_prompts`` makes every fourth prompt 96-191 tokens
+    (chunked prefill's workload)."""
     rng = np.random.default_rng(rng_seed)
     reqs = []
     for i in range(n):
-        plen = int(rng.integers(4, 24))
+        if long_prompts and i % 4 == 0:
+            plen = int(rng.integers(96, 192))
+        else:
+            plen = int(rng.integers(4, 24))
         reqs.append(Request(
             request_id=i,
             prompt=rng.integers(1, vocab, plen).tolist(),
@@ -98,8 +109,6 @@ def serve_batch(eng: Engine, reqs):
 
 
 _UNPORTED = {
-    "cache": ("--cache paged", 6), "prompt_chunk": ("--prompt-chunk", 6),
-    "long_prompts": ("--long-prompts (chunked prefill workload)", 6),
     "sampler_mode": ("--sampler-mode", 8), "samplers": ("--samplers", 8),
     "pool_algorithm": ("--pool-algorithm", 8), "gateway": ("--gateway", 9),
     "disaggregate": ("--disaggregate", 9), "trace_out": ("--trace-out", 9),
@@ -131,10 +140,18 @@ def main(argv=None) -> None:
                     help="argmax decoding for every request")
     ap.add_argument("--stop", action="append", default=[], metavar="IDS",
                     help="token-level stop sequence as comma-separated ids")
-    # the reference driver's flags outside this slice: accepted, refused
-    ap.add_argument("--cache", default=None)
-    ap.add_argument("--prompt-chunk", type=int, default=None)
-    ap.add_argument("--long-prompts", action="store_true", default=None)
+    ap.add_argument("--prompt-chunk", type=int, default=0,
+                    help="chunked-prefill width; 0 = monolithic prefill")
+    ap.add_argument("--long-prompts", action="store_true",
+                    help="mix in long prompts (exercises chunked prefill)")
+    ap.add_argument("--cache", choices=("contiguous", "paged"),
+                    default="contiguous",
+                    help="KV layout: per-slot slabs or a paged block pool")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV block (paged cache)")
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="paged pool size; 0 = memory-equal to contiguous")
+    # the reference driver's flags the port does not serve: refused
     ap.add_argument("--sampler-mode", default=None)
     ap.add_argument("--samplers", type=int, default=None)
     ap.add_argument("--pool-algorithm", default=None)
@@ -146,7 +163,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     for dest, (flag, item) in _UNPORTED.items():
         val = getattr(args, dest)
-        if val is not None and not (dest == "cache" and val == "contiguous"):
+        if val is not None:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP 'Modules to port' item "
                 f"{item})")
@@ -155,15 +172,23 @@ def main(argv=None) -> None:
         tuple(int(t) for t in s.split(",") if t.strip()) for s in args.stop)
     eng = build_engine(args.arch, args.reduced, args.algorithm, args.batch,
                        args.max_seq, overlap=args.overlap,
+                       prompt_chunk=args.prompt_chunk, cache=args.cache,
+                       block_size=args.block_size, num_blocks=args.num_blocks,
                        device=args.device)
     reqs = synth_requests(args.requests, eng.cfg.vocab_size, args.max_new,
-                          seed=args.seed, greedy=args.greedy,
-                          stop_sequences=stop_sequences)
+                          long_prompts=args.long_prompts, seed=args.seed,
+                          greedy=args.greedy, stop_sequences=stop_sequences)
     rep = serve_batch(eng, reqs)
     eng.close()
     where = torch.cuda.get_device_name(eng.device) \
         if eng.device.type == "cuda" else "cpu"
     mode = "overlapped" if args.overlap else "sequential"
+    if args.prompt_chunk:
+        mode += f", prompt_chunk={args.prompt_chunk}"
+    if args.cache == "paged":
+        mode += (f", paged bs={eng.pcfg.block_size} "
+                 f"pool={eng.pcfg.num_blocks} "
+                 f"preemptions={eng.scheduler.preemptions}")
     print(f"\nserved {rep['requests']} requests, {rep['tokens']} tokens in "
           f"{rep['seconds']:.2f}s ({rep['tok_per_s']:.1f} tok/s) "
           f"[{args.algorithm}, {mode}, {where}]")

@@ -5,6 +5,8 @@
     cache = model.init_cache(B, S, device="cuda")
     logits, cache = model.prefill(params, {"tokens": t}, cache,
                                   true_lens=lens)        # (B, V) f32
+    logits, cache = model.prefill_chunk(params, toks, cache, counts,
+                                        mask)                # (B, V) f32
     logits, cache = model.decode_step(params, tokens, cache)  # (B, V) f32
 
 ``params`` is the reference's tree (``{"emb": {...}, "stack": {...}}``,
@@ -74,6 +76,30 @@ class Model:
             cache["len"] = torch.zeros_like(cache["len"]) + true_lens
         else:
             y_last = y[:, -1]
+        return lm_head(params["emb"], y_last), cache
+
+    def prefill_chunk(self, params, tokens, cache, counts, mask):
+        """Continue prefilling in place: write ``counts[b]`` prompt tokens
+        (right-padded to the chunk width C) for rows where ``mask[b]``,
+        starting at each row's current ``cache["len"]``.
+
+        tokens: (B, C) int32; counts: (B,) int32; mask: (B,) bool. Rows
+        outside the mask keep their cache entries and their ``len``.
+        Returns (logits at each row's last valid chunk position (B, V),
+        cache). Full-causal decoders only (the engine gates it); works on
+        contiguous and paged caches alike."""
+        cfg = self.cfg
+        assert not cfg.sliding_window, "chunked prefill: full-causal only"
+        lens0 = cache["len"]
+        x, positions = self._embed_inputs(params, tokens, lens=lens0)
+        y, cache = apply_dense_stack(params["stack"], x, positions, cfg,
+                                     cache, "chunk", chunk_mask=mask,
+                                     chunk_counts=counts)
+        B, C = tokens.shape
+        idx = torch.clamp(counts.long() - 1, 0, C - 1)
+        y_last = y[torch.arange(B, device=y.device), idx]
+        cache = dict(cache)
+        cache["len"] = lens0 + torch.where(mask, counts, 0).to(lens0.dtype)
         return lm_head(params["emb"], y_last), cache
 
     def decode_step(self, params, tokens, cache, window=None):

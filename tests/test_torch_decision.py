@@ -21,7 +21,7 @@ from repro_torch.core.sampling import SamplingParams as TParams
 from repro_torch.kernels import ops
 
 B, V = 8, 512
-BACKENDS = ("reference", "truncation_first", "shvs", "fused")
+BACKENDS = ("reference", "truncation_first", "shvs", "fused", "gumbel")
 
 
 def _case(seed=0):
@@ -146,4 +146,4 @@ def test_histograms_skip_inactive_and_out_of_range_tokens():
 
 def test_unregistered_backend_raises_value_error():
     with pytest.raises(ValueError, match="registered backends"):
-        TPlane(V, algorithm="gumbel", device="cpu")
+        TPlane(V, algorithm="no-such-backend", device="cpu")

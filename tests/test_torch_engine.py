@@ -93,8 +93,7 @@ def test_generate_streams_match_reference(weights, reference_streams,
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("cache", "paged", "item 6"), ("prompt_chunk", 16, "item 6"),
-    ("sampler_mode", "host", "item 8")])
+    ("sampler_mode", "host", "item 8"), ("sampler_mode", "adaptive", "item 8")])
 def test_unported_engine_modes_raise(weights, field, value, item):
     _, _, tp = weights
     with pytest.raises(NotImplementedError, match=item):

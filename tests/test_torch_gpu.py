@@ -6,13 +6,16 @@ them:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.config import SHVSConfig, get_arch
 from repro_torch.engine.engine import Engine, EngineConfig
-from repro_torch.kernels import fused_kernel, penalty_kernel, ref, shvs_kernel
+from repro_torch.kernels import (fused_kernel, gumbel_kernel, penalty_kernel,
+                                 ref, shvs_kernel)
 from repro_torch.launch.serve import synth_requests
 from repro_torch.models.model import Model
 
@@ -83,6 +86,26 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         shvs_kernel.shvs_masses(z.cpu(), hot.cpu())
 
 
+@pytest.mark.parametrize("B,V,seed", [(1, 300, 0), (3, 50021, 42),
+                                      (8, 49152, 324), (8, 49152, 3000009007)])
+def test_gumbel_kernel_matches_plain_version(B, V, seed):
+    """Tokens equal, with -1e30 entries, a NaN row and (seed 324, row 0 of
+    a V = 49152 operand) the hash's u == 1.0 at column 32466."""
+    dev = _cuda()
+    rs = np.random.default_rng(V + seed % 1000)
+    z = rs.normal(0, 2, (B, V)).astype(np.float32)
+    z[-1, : V // 3] = -1e30
+    if B > 2:
+        z[1, [5, 9]] = np.nan
+    zt = torch.from_numpy(z).to(dev)
+    got = gumbel_kernel.gumbel_argmax(zt, seed)
+    want = ref.gumbel_argmax_ref(zt, seed)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if seed == 324 and V == 49152:
+        zero = torch.zeros((1, V), device=dev)
+        assert int(gumbel_kernel.gumbel_argmax(zero, seed)[0]) == 32466
+
+
 @pytest.mark.parametrize("algorithm", ["shvs", "fused"])
 def test_engine_on_cuda_matches_engine_on_cpu(algorithm):
     dev = _cuda()
@@ -101,5 +124,32 @@ def test_engine_on_cuda_matches_engine_on_cpu(algorithm):
             r.request_id = i
         list(eng.generate(reqs))
         eng.close()
+        streams.append([(r.output, r.finish_reason) for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_paged_chunked_gumbel_engine_on_cuda_matches_cpu(overlap):
+    """The gumbel backend over the paged cache with chunked prefill, long
+    prompts and a pool small enough to preempt: the same streams on CUDA
+    as on the CPU."""
+    dev = _cuda()
+    cfg = get_arch("smollm-360m").reduced()
+    params = Model(cfg).init(seed=1, device="cpu")
+    to = lambda t: {k: to(v) if isinstance(v, dict) else v.to(dev)
+                    for k, v in t.items()}
+    streams = []
+    for device, p in (("cpu", params), (dev, to(params))):
+        eng = Engine(cfg, p, EngineConfig(
+            max_batch=4, max_seq_len=256, algorithm="gumbel", k_cap=64,
+            cache="paged", block_size=16, num_blocks=16, prompt_chunk=32,
+            overlap=overlap, seed=3000), device=device)
+        reqs = synth_requests(8, cfg.vocab_size, 24, long_prompts=True,
+                              seed=5)
+        for r in reqs[::2]:
+            r.sampling = dataclasses.replace(r.sampling, top_k=0, top_p=1.0)
+        list(eng.generate(reqs))
+        eng.close()
+        assert eng.scheduler.preemptions > 0
         streams.append([(r.output, r.finish_reason) for r in reqs])
     assert streams[0] == streams[1]

@@ -193,5 +193,7 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
     torch.testing.assert_close(z, tref.penalty_ref(*[_t(x[k]) for k in _PEN]),
                                rtol=0, atol=0)
     ops.fused_shvs_masses(z, _t(x["hot"]))
+    np.testing.assert_array_equal(ops.fused_gumbel_argmax(z, 7).numpy(),
+                                  tref.gumbel_argmax_ref(z, 7).numpy())
     assert ops.launch_counts() == {"penalty_scale": 0, "shvs_masses": 0,
-                                   "fused_sample": 0}
+                                   "fused_sample": 0, "gumbel_argmax": 0}
