@@ -13,7 +13,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ±1e4 logits, all-hot and no-hot sets; for ``gumbel_argmax`` -1e30
    entries, a NaN row and seed 324, whose hash gives u == 1.0 at row 0,
    column 32466 of a V = 49152 operand), and time kernel and plain
-   version with CUDA events, in turns, after a warm-up;
+   version with CUDA events, in turns, after a warm-up, at two shapes:
+   the main path's, warm in L2, and B = 64, V = 151936 (qwen3-8b's
+   vocabulary), cold: calls rotate over copies of the inputs whose bytes
+   exceed twice the L2. Each kernel's record carries its share of its
+   bound (bound ms / kernel ms) at both;
 3. hold the port's CUDA forward against its CPU forward on a small f32
    model (the CPU forward is what the tests hold against the reference);
 4. serve 8 seeded requests of 16 new tokens at the full width of
@@ -54,6 +58,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 
 B_MAIN, V_MAIN, H_MAIN, K_CAP = 8, 49152, 1024, 256
+B_LARGE, V_LARGE = 64, 151936  # an HBM-sized shape: qwen3-8b's vocabulary
 V_ODD = 50021                  # divisible by no power-of-two block
 PAGED = dict(cache="paged", block_size=16, num_blocks=16, prompt_chunk=64)
 PAGED_NEW = 32                 # new tokens a request on the paged path
@@ -162,7 +167,7 @@ def hot_mask(V, kind, dev):
 
 def check_kernels(dev):
     """Phase 2: every kernel against its plain version; returns per-kernel
-    errors and timings at the main path's shapes."""
+    errors, and timings and bounds at the main and the large shape."""
     import torch
     from repro_torch.kernels import (fused_kernel, gumbel_kernel,
                                      penalty_kernel, ref, shvs_kernel)
@@ -230,37 +235,151 @@ def check_kernels(dev):
               f"{', NaN row' if B > 2 else ''}, seeds 0/42/324/3000009007, "
               f"u == 1.0 at column {U_ONE_COL}): ok")
 
-    # timings at the main path's shapes (B=8, V=49152, H=1024, k_cap=256)
-    x = make_inputs(B_MAIN, V_MAIN, gen, dev)
-    hot = hot_mask(V_MAIN, "first", dev)
-    pen_args = (x["z"], x["cp"], x["co"], x["rep"], x["pres"], x["freq"],
-                torch.ones_like(x["temp"]))      # the shell's τ = 1 pass
-    zs = ref.penalty_ref(x["z"], x["cp"], x["co"], x["rep"], x["pres"],
-                         x["freq"], x["temp"])
-    f_args = pen_args[:6] + (x["temp"], x["top_k"], x["top_p"], x["min_p"],
-                             x["u"], hot)
-    B, V = B_MAIN, V_MAIN
+    check_split(gen, dev, err)
+    timing = {"main": time_kernels(B_MAIN, V_MAIN, gen, dev, 1, 1),
+              "large": time_kernels(B_LARGE, V_LARGE, gen, dev, 3, 2)}
+    bounds = {"main": kernel_bounds(B_MAIN, V_MAIN),
+              "large": kernel_bounds(B_LARGE, V_LARGE)}
+    return err, timing, bounds
+
+
+def check_split(gen, dev, err):
+    """Phase 2, the cluster split of ``shvs_masses`` and ``fused_sample``:
+    a CTA with fewer than K columns (V = 2049 and 4100 as one tile: CTAs
+    of 2048 and 1 columns, and of 2048, 2048, 4 and 0; V = 300 stays on
+    one CTA, as no CTA but the last gets fewer than 2048 columns), rows
+    that are not 16-byte aligned (V odd), equal maxima placed in
+    different CTAs' ranges on a τ = 0 row (the lowest column must win), an
+    all-equal row, -1e30 entries, a top_k = 1 row, B = 1 and B = 64 × V =
+    151936; and two launches on the same inputs give the same bits."""
+    import torch
+    from repro_torch.kernels import fused_kernel, ref, shvs_kernel
+    for B, V, block_v in ((8, 300, BLOCK_V), (8, 2049, 2049),
+                          (3, 4100, 4100), (B_MAIN, V_ODD, BLOCK_V),
+                          (1, V_MAIN, BLOCK_V), (B_MAIN, V_MAIN, BLOCK_V),
+                          (B_LARGE, V_LARGE, BLOCK_V)):
+        Vp = -(-V // block_v) * block_v
+        sf = fused_kernel.split(B, Vp, min(K_CAP, Vp))
+        ss = shvs_kernel.split(B, V)
+        x = make_inputs(B, V, gen, dev, tau_zero=(0,))
+        ties = hazard_rows(x, V, sf["chunk"], sf["C"])
+        hot = hot_mask(V, "first", dev)
+        pen = (x["z"], x["cp"], x["co"], x["rep"], x["pres"], x["freq"],
+               x["temp"])
+        zs = ref.penalty_ref(*pen)
+        got = shvs_kernel.shvs_masses(zs, hot)
+        again = shvs_kernel.shvs_masses(zs, hot)
+        want = ref.shvs_mass_ref(zs, hot)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), \
+            f"shvs_masses: two launches differ at B={B} V={V}"
+        assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3]), \
+            f"shvs_masses m/tail_max differ at B={B} V={V}"
+        for g, w in zip(got[1:3], want[1:3]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+        err["shvs_masses"] = max(err["shvs_masses"], max(
+            (g - w).abs().max().item() for g, w in zip(got, want)))
+        f_args = pen + (x["top_k"], x["top_p"], x["min_p"], x["u"], hot)
+        got = fused_kernel.fused_sample(*f_args, k_cap=K_CAP, block_v=block_v)
+        again = fused_kernel.fused_sample(*f_args, k_cap=K_CAP,
+                                          block_v=block_v)
+        want = ref.fused_sample_ref(*f_args, k_cap=K_CAP, block_v=block_v)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), \
+            f"fused_sample: two launches differ at B={B} V={V}"
+        for name, i in (("tokens", 0), ("exact", 1), ("kept", 3)):
+            assert torch.equal(got[i], want[i]), (
+                f"fused_sample {name} differ at B={B} V={V} "
+                f"block_v={block_v}: {got[i].tolist()} vs {want[i].tolist()}")
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+        err["fused_sample"] = max(err["fused_sample"],
+                                  (got[2] - want[2]).abs().max().item())
+        assert int(got[0][0]) == ties[0], \
+            ("the lowest of the equal maxima must win", ties, got[0][0])
+        print(f"split check B={B} V={V} block_v={block_v}: shvs_masses C="
+              f"{ss['C']} grid {ss['grid']} chunk {ss['chunk']}; "
+              f"fused_sample C={sf['C']} grid {sf['grid']} chunk "
+              f"{sf['chunk']} smem {sf['smem_bytes']} B; equal maxima at "
+              f"columns {ties} (row 0 took {int(got[0][0])}); two launches "
+              f"bit-equal: ok")
+
+
+def hazard_rows(x, V, chunk, C):
+    """Rewrite rows of the inputs ``x`` in place: row 0 (τ = 0) gets equal
+    maxima at column 3 of each CTA's range, with zero counts there; row 1
+    is all equal with zero counts; row 2 has -1e30 on its first two
+    thirds; the last row takes top_k = 1. Returns row 0's tied columns."""
+    B = x["z"].shape[0]
+    ties = sorted({min(r * chunk + 3, V - 1) for r in range(C)})
+    x["z"][0, ties] = 30.0
+    x["cp"][0, ties] = 0
+    x["co"][0, ties] = 0
+    if B > 1:
+        x["top_k"][-1] = 1
+    if B > 2:
+        x["z"][1] = 0.25
+        x["cp"][1] = 0
+        x["co"][1] = 0
+    if B > 3:
+        x["z"][2, :2 * V // 3] = -1e30
+    return ties
+
+
+def time_kernels(B, V, gen, dev, z_copies, set_copies):
+    """Kernel and plain-version times of the four kernels at (B, V), H =
+    1024, k_cap = 256. With one copy the inputs stay warm in the 50 MB L2,
+    as the decode step finds the logits the LM head has just written.
+    Otherwise each call takes the next of ``z_copies`` copies of z
+    (``shvs_masses``, ``gumbel_argmax``) or of ``set_copies`` copies of
+    (z, counts_p, counts_o) (``penalty_scale``, ``fused_sample``), so that
+    the rotation's bytes exceed twice the L2 and every call reads HBM."""
+    import itertools
+    import torch
+    from repro_torch.kernels import (fused_kernel, gumbel_kernel,
+                                     penalty_kernel, ref, shvs_kernel)
+    sets = [make_inputs(B, V, gen, dev) for _ in range(max(z_copies,
+                                                           set_copies))]
+    hot = hot_mask(V, "first", dev)
+    # the shell's τ = 1 penalty pass, and the scaled logits the samplers see
+    pen = [(x["z"], x["cp"], x["co"], x["rep"], x["pres"], x["freq"],
+            torch.ones_like(x["temp"])) for x in sets[:set_copies]]
+    fus = [p[:6] + (x["temp"], x["top_k"], x["top_p"], x["min_p"], x["u"],
+                    hot) for p, x in zip(pen, sets)]
+    zs = [ref.penalty_ref(x["z"], x["cp"], x["co"], x["rep"], x["pres"],
+                          x["freq"], x["temp"]) for x in sets[:z_copies]]
+
+    def turn(items):
+        it = itertools.cycle(items)
+        return lambda: next(it)
+
+    nz, nset = turn(zs), turn(range(set_copies))
     timing = {}
     timing["penalty_scale"] = time_in_turns(
-        "penalty_scale", lambda: penalty_kernel.penalty_scale(*pen_args),
-        lambda: ref.penalty_ref(*pen_args))
+        "penalty_scale", lambda: penalty_kernel.penalty_scale(*pen[nset()]),
+        lambda: ref.penalty_ref(*pen[nset()]))
     timing["shvs_masses"] = time_in_turns(
-        "shvs_masses", lambda: shvs_kernel.shvs_masses(zs, hot),
-        lambda: ref.shvs_mass_ref(zs, hot))
-    # the plain version issues ~400 launches a call: one call per
+        "shvs_masses", lambda: shvs_kernel.shvs_masses(nz(), hot),
+        lambda: ref.shvs_mass_ref(nz(), hot))
+    # the plain version makes ~16 launches a tile: one call per
     # measurement keeps the queue below the device's depth limit
     timing["fused_sample"] = time_in_turns(
         "fused_sample",
-        lambda: fused_kernel.fused_sample(*f_args, k_cap=K_CAP,
+        lambda: fused_kernel.fused_sample(*fus[nset()], k_cap=K_CAP,
                                           block_v=BLOCK_V),
-        lambda: ref.fused_sample_ref(*f_args, k_cap=K_CAP, block_v=BLOCK_V),
+        lambda: ref.fused_sample_ref(*fus[nset()], k_cap=K_CAP,
+                                     block_v=BLOCK_V),
         n_kernel=50, n_plain=1)
     timing["gumbel_argmax"] = time_in_turns(
-        "gumbel_argmax", lambda: gumbel_kernel.gumbel_argmax(zs, 1234),
-        lambda: ref.gumbel_argmax_ref(zs, 1234))
-    # least time for the same work: each input read once, each output
-    # written once, over the memory rate; element operations over the f32
-    # rate (rough counts: the byte bound is larger by two orders)
+        "gumbel_argmax", lambda: gumbel_kernel.gumbel_argmax(nz(), 1234),
+        lambda: ref.gumbel_argmax_ref(nz(), 1234))
+    return timing
+
+
+def kernel_bounds(B, V):
+    """Least time for each kernel's work at (B, V): each input read once,
+    each output written once, over the memory rate; element operations
+    over the f32 rate (rough counts: the byte bound is larger by two
+    orders). Returns {name: (ms, "bytes" | "operations", bytes)}."""
     moved = {"penalty_scale": B * V * (4 + 4 + 4) + B * V * 4 + 4 * B * 4,
              "shvs_masses": B * V * 4 + V * 1 + 4 * B * 4,
              "fused_sample": B * V * 12 + V * 1 + 8 * B * 4 + B * 13,
@@ -274,7 +393,7 @@ def check_kernels(dev):
         t_ops = ops[k] / F32_FLOPS * 1e3
         bounds[k] = (max(t_bytes, t_ops),
                      "bytes" if t_bytes >= t_ops else "operations", moved[k])
-    return err, timing, bounds
+    return bounds
 
 
 def check_model(dev):
@@ -641,21 +760,30 @@ def main() -> int:
                  "gumbel_argmax": counts["gumbel_paged"]["gumbel_argmax"]}
     kernels = []
     for mod in (penalty_kernel, shvs_kernel, fused_kernel, gumbel_kernel):
-        k_ms, p_ms, launch_ms, p_blocked = timing[mod.NAME]
-        b_ms, b_by, nbytes = bounds[mod.NAME]
-        kernels.append({
-            "name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": launch_of[mod.NAME],
-            "max_abs_err": err[mod.NAME], "ms": k_ms, "kernel_ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "launch_ms": launch_ms,
-            "plain_blocked_host": p_blocked})
-        print(f"{mod.NAME}: kernel {k_ms:.4f} ms on the device "
-              f"({launch_ms:.4f} ms a call with launch overhead), "
-              f"plain {p_ms:.4f} ms"
-              f"{' (plain call waited on the stream)' if p_blocked else ''}, "
-              f"bound {b_ms:.5f} ms ({nbytes} bytes), "
-              f"launches {launch_of[mod.NAME]} [{card}]")
+        rec = {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
+               "replaces": mod.REPLACES, "launches": launch_of[mod.NAME],
+               "max_abs_err": err[mod.NAME]}
+        for shape, (B, V) in (("main", (B_MAIN, V_MAIN)),
+                              ("large", (B_LARGE, V_LARGE))):
+            k_ms, p_ms, launch_ms, p_blocked = timing[shape][mod.NAME]
+            b_ms, b_by, nbytes = bounds[shape][mod.NAME]
+            t = {"B": B, "V": V, "ms": k_ms, "kernel_ms": k_ms,
+                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "share": b_ms / k_ms, "library_ms": None,
+                 "launch_ms": launch_ms, "plain_blocked_host": p_blocked}
+            if shape == "main":
+                rec.update(t)
+            else:
+                rec["large"] = t
+            print(f"{mod.NAME} B={B} V={V} "
+                  f"({'warm in L2' if shape == 'main' else 'cold, rotated'}):"
+                  f" kernel {k_ms:.4f} ms on the device ({launch_ms:.4f} ms "
+                  f"a call with launch overhead), plain {p_ms:.4f} ms"
+                  f"{' (plain call waited on the stream)' if p_blocked else ''}"
+                  f", bound {b_ms:.5f} ms ({nbytes} bytes), share of bound "
+                  f"{b_ms / k_ms:.1%}, launches {launch_of[mod.NAME]} "
+                  f"[{card}]")
+        kernels.append(rec)
     report = {"card": card, "torch": torch.__version__, "kernels": kernels,
               "model_check_max_abs_err": model_err, "runs": runs,
               "step_profile": steps}

@@ -7,45 +7,123 @@
 // (fused_sample, body _fused_kernel at :49).
 //
 // Bound: bytes. It must read the row's logits and two count rows (12 B an
-// element) and the hot mask; at B = 8, V = 49152 that is 4.77 MB, about
-// 1.4 us at 3.35 TB/s. Design: one block per row, a few passes over the
-// row (196 KB of f32 logits plus the counts, which stay in the 50 MB L2):
-//   1. penalised logit per element; online (m, S_tot, S_hot); histogram
-//      of the top byte of its sort key;
-//   2. radix select of the K-th largest 64-bit key, one byte a pass, until
-//      the selected bin holds exactly the keys still wanted;
-//   3. gather the K keys above the threshold, bitonic sort in shared memory;
-//   4. the trunc_gumbel_draw epilogue on the K sorted entries.
-// The key is the order-preserving bits of the value over the inverted
-// vocabulary id, so a descending key order is "value descending, lowest id
-// first" — the total order of the TPU kernel's stable merge — under any
-// sort network. The penalised logit is recomputed in each pass instead of
-// being stored. Columns in [V, Vp) are virtual padding (z = -1e30, zero
-// counts, cold), exactly what ref.fused_pad gives the plain version, so K =
+// element) and the hot mask; at B = 8, V = 49152 that is 4.77 MB, 1.4 us
+// at 3.35 TB/s, and at B = 64, V = 151936 116.8 MB, 34.9 us. What held
+// the one-block-a-row design back was not the bytes: 8 of 132 SMs at
+// B = 8, a radix select that re-read and re-penalised the row from
+// global memory on every pass, a histogram keyed on the sign and exponent
+// (a few bins, so tens of thousands of shared atomics on a few
+// addresses), and a cumulative sum taken by one thread.
+//
+// Design: a row is split over a thread-block cluster of C CTAs (row_split
+// in decision.cuh: C = 16 at B = 8, 128 CTAs), each owning a contiguous
+// range of the padded vocabulary [0, Vp):
+//   A. one read of the range (16-byte loads of z and both counts where the
+//      three rows share their alignment, a scalar head and tail): the
+//      penalised value, the CTA's online (m, S_tot, S_hot), and the
+//      value's 32-bit order bits in shared memory at its local column, so
+//      no later pass touches global memory and the 64-bit key (order bits
+//      over the inverted column) is rebuilt from position;
+//   B. the range's min(K, n) largest keys: a radix select on the order
+//      bits, 8 bits a pass, into warp-private histograms with
+//      warp-aggregated increments (__match_any_sync); it stops as soon as
+//      the selected bin holds exactly the keys still wanted, else the last
+//      pass leaves one value and the lowest columns holding it are taken
+//      by an ordered block count; the selected keys are bitonic-sorted;
+//   C. after cluster.sync() rank 0 merges the C partial masses in rank
+//      order, and the lists merge pairwise in log2(C) levels through
+//      distributed shared memory: rank r (a multiple of 2s) keeps the
+//      larger of its key i and key L-1-i of rank r+s, the top L of both
+//      as a bitonic sequence, then bitonic-merges it, so a level runs on
+//      C/2s SMs at once; rank 0 then runs the truncation-first filter and
+//      the restricted draw on the K sorted keys, with a block scan for the
+//      cumulative mass.
+// The bitonic networks exchange through shared memory for strides of 32
+// and more and through warp shuffles below.
+// A descending key is "value descending, lowest id first", the total
+// order of the TPU kernel's stable merge, so any split yields the same K
+// keys. Columns in [V, Vp) are virtual padding (z = -1e30, zero counts,
+// cold), exactly what ref.fused_pad gives the plain version, so K =
 // min(k_cap, Vp) and the result equal the plain version's for the same
-// block_v. Eight rows use eight SMs: at the main path's batch the kernel is
-// launch- and latency-bound, and it is not tuned for that yet.
+// block_v. There are no float atomics: two launches give the same bits.
+//
+// Dynamic shared memory a CTA: 4 B a column of its range + 16 KB of
+// histograms (rank 0's epilogue reuses them) + 8 L B for its list, L = K
+// rounded up to a power of two; 30 KB at B = 8, V = 49152, K = 256. K is
+// at most 1024 and a CTA keeps at most 32768 columns, so Vp is at most
+// 16 * 32768.
 #include "decision.cuh"
 
 #define FUSED_THREADS 512
-#define FUSED_MAX_K 2048
+#define FUSED_WARPS (FUSED_THREADS / 32)
+#define FUSED_MAX_K 1024
+#define FUSED_MAX_COLS 32768
+#define FUSED_MAX_ROWS 65535
+#define FUSED_HIST_BYTES (FUSED_WARPS * 256 * 4)
 #define FUSED_DRAW_SALT 0x46555345u
 
-struct Row {
-  const float* z;
-  const int* cp;
-  const int* co;
-  float rep, pres, freq, temp;
-  int V;
-};
-
-__device__ __forceinline__ float zs_at(const Row& r, int j) {
-  if (j < r.V)
-    return penalize(r.z[j], r.cp[j], r.co[j], r.rep, r.pres, r.freq, r.temp);
-  return penalize(REPRO_NEG_INF, 0, 0, r.rep, r.pres, r.freq, r.temp);
+__device__ __forceinline__ uint64_t key_at(uint32_t ord, int j) {
+  return ((uint64_t)ord << 32) | (uint64_t)(0xFFFFFFFFu - (uint32_t)j);
 }
 
-__global__ void __launch_bounds__(FUSED_THREADS)
+// Bitonic networks on L keys (a power of two) in shared memory; the key
+// at index i goes descending where (i & size) == 0. A stride of 32 or
+// more exchanges through shared memory, one __syncthreads each; strides
+// below 32 run in registers, 32 consecutive keys a warp, through shuffles,
+// for several stages at once where no larger stride comes between.
+__device__ __forceinline__ void bitonic_smem(uint64_t* a, int L, int size,
+                                             int stride) {
+  for (int q = threadIdx.x; q < (L >> 1); q += FUSED_THREADS) {
+    const int i = ((q & ~(stride - 1)) << 1) | (q & (stride - 1));
+    const uint64_t x = a[i], y = a[i + stride];
+    if ((i & size) == 0 ? x < y : x > y) {
+      a[i] = y;
+      a[i + stride] = x;
+    }
+  }
+  __syncthreads();
+}
+
+// The strides below 32 of stages size_lo .. size_hi.
+__device__ __forceinline__ void bitonic_warp(uint64_t* a, int L, int size_lo,
+                                             int size_hi) {
+  const int lane = threadIdx.x & 31;
+  for (int b = threadIdx.x & ~31; b < L; b += FUSED_THREADS) {
+    const int i = b + lane;
+    uint64_t x = i < L ? a[i] : 0;
+    for (int size = size_lo; size <= size_hi; size <<= 1) {
+      for (int stride = min(size >> 1, 16); stride > 0; stride >>= 1) {
+        const uint64_t y = __shfl_xor_sync(REPRO_FULL_MASK, x, stride);
+        const bool keep_max = ((i & stride) == 0) == ((i & size) == 0);
+        x = keep_max ? (x > y ? x : y) : (x < y ? x : y);
+      }
+    }
+    if (i < L) a[i] = x;
+  }
+  __syncthreads();
+}
+
+// Sort a[0, L) descending.
+__device__ __forceinline__ void bitonic_sort(uint64_t* a, int L) {
+  bitonic_warp(a, L, 2, min(L, 32));
+  for (int size = 64; size <= L; size <<= 1) {
+    for (int stride = size >> 1; stride >= 32; stride >>= 1)
+      bitonic_smem(a, L, size, stride);
+    bitonic_warp(a, L, size, size);
+  }
+}
+
+// a[0, L) is a bitonic sequence: sort it descending (size L: every key
+// descends).
+__device__ __forceinline__ void bitonic_merge(uint64_t* a, int L) {
+  for (int stride = L >> 1; stride >= 32; stride >>= 1)
+    bitonic_smem(a, L, L, stride);
+  bitonic_warp(a, L, L, L);
+}
+
+// Three CTAs an SM (at most 40 registers a thread): at B = 64 the card
+// then holds 21 clusters of 16 at once instead of 14.
+__global__ void __launch_bounds__(FUSED_THREADS, 3)
     fused_sample_kernel(const float* __restrict__ z,
                         const int* __restrict__ cp, const int* __restrict__ co,
                         const float* __restrict__ rep,
@@ -60,134 +138,290 @@ __global__ void __launch_bounds__(FUSED_THREADS)
                         int* __restrict__ tokens,
                         unsigned char* __restrict__ exact,
                         float* __restrict__ alpha, int* __restrict__ kept,
-                        int V, int Vp, int K) {
-  __shared__ unsigned int hist[256];
-  __shared__ uint64_t keys[FUSED_MAX_K];
-  __shared__ float w_s[FUSED_MAX_K];
-  __shared__ float p_s[FUSED_MAX_K];
-  __shared__ float cum_s[FUSED_MAX_K];
+                        int V, int Vp, int K, int chunk, int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* key32 = reinterpret_cast<uint32_t*>(smem);
+  // chunk is a multiple of 16, so every region is 16-byte aligned
+  uint32_t* hist = reinterpret_cast<uint32_t*>(key32 + chunk);
+  uint64_t* list = reinterpret_cast<uint64_t*>(hist + FUSED_WARPS * 256);
   __shared__ float scratch[96];
   __shared__ int iscratch[64];
-  __shared__ uint64_t s_prefix, s_mask;
-  __shared__ unsigned int s_krem, s_count;
-  __shared__ int s_done;
+  __shared__ float state[4], fin[2];
+  __shared__ uint32_t s_sel[3];
+  __shared__ unsigned int s_count;
 
-  const int row = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), C = (int)cl.num_blocks();
+  const int row = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const int c0 = min(rank * chunk, Vp), c1 = min(c0 + chunk, Vp);
+  const int n = c1 - c0;
   const size_t base = (size_t)row * V;
-  const Row r = {z + base, cp + base, co + base, rep[row], pres[row],
-                 freq[row], temp[row], V};
+  const float* zr = z + base;
+  const int* cpr = cp + base;
+  const int* cor = co + base;
+  const float rp = rep[row], pr = pres[row], fr = freq[row], tm = temp[row];
 
-  // -- pass 1: masses and the top byte's histogram --------------------------
-  for (int i = tid; i < 256; i += nt) hist[i] = 0;
-  __syncthreads();
+  // -- A: one read of the range ---------------------------------------------
   float m = REPRO_NEG_INF, s_tot = 0.0f, s_hot = 0.0f;
-  for (int j = tid; j < Vp; j += nt) {
-    const float v = zs_at(r, j);
-    mass_add(m, s_tot, s_hot, v, true, j < V && hot[j] != 0);
-    atomicAdd(&hist[(unsigned)(sort_key(v, j) >> 56)], 1u);
+  const int r1 = max(c0, min(c1, V));      // real [c0, r1), virtual [r1, c1)
+  const bool together = ((((uintptr_t)zr ^ (uintptr_t)cpr) |
+                          ((uintptr_t)zr ^ (uintptr_t)cor)) & 15) == 0;
+  const int head = together ? head_to_16(zr + c0, r1 - c0) : r1 - c0;
+  const int nvec = (r1 - c0 - head) >> 2;
+  const int v0 = c0 + head, v1 = v0 + 4 * nvec;
+  for (int j = c0 + tid; j < v0; j += FUSED_THREADS) {
+    const float v = penalize(zr[j], cpr[j], cor[j], rp, pr, fr, tm);
+    key32[j - c0] = ord_bits(v);
+    mass_add(m, s_tot, s_hot, v, true, hot[j] != 0);
   }
-  block_mass_reduce(m, s_tot, s_hot, scratch);
-
-  // -- pass 2: radix select of the K-th largest key -------------------------
-  uint64_t prefix = 0, pmask = 0;
-  unsigned int krem = (unsigned int)K;
-  for (int shift = 56;; shift -= 8) {
-    if (shift < 56) {
-      for (int i = tid; i < 256; i += nt) hist[i] = 0;
-      __syncthreads();
-      for (int j = tid; j < Vp; j += nt) {
-        const uint64_t key = sort_key(zs_at(r, j), j);
-        if ((key & pmask) == prefix)
-          atomicAdd(&hist[(unsigned)((key >> shift) & 0xFF)], 1u);
-      }
-      __syncthreads();
+  for (int j = v1 + tid; j < r1; j += FUSED_THREADS) {
+    const float v = penalize(zr[j], cpr[j], cor[j], rp, pr, fr, tm);
+    key32[j - c0] = ord_bits(v);
+    mass_add(m, s_tot, s_hot, v, true, hot[j] != 0);
+  }
+  {
+    const float4* zv = reinterpret_cast<const float4*>(zr + v0);
+    const int4* pv = reinterpret_cast<const int4*>(cpr + v0);
+    const int4* ov = reinterpret_cast<const int4*>(cor + v0);
+#pragma unroll 4
+    for (int i = tid; i < nvec; i += FUSED_THREADS) {
+      const float4 q = __ldg(zv + i);
+      const int4 a = __ldg(pv + i), b = __ldg(ov + i);
+      const float v[4] = {penalize(q.x, a.x, b.x, rp, pr, fr, tm),
+                          penalize(q.y, a.y, b.y, rp, pr, fr, tm),
+                          penalize(q.z, a.z, b.z, rp, pr, fr, tm),
+                          penalize(q.w, a.w, b.w, rp, pr, fr, tm)};
+      const int j = v0 + 4 * i;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) key32[j - c0 + k] = ord_bits(v[k]);
+      mass_add4(m, s_tot, s_hot, v, 0xFu, hot_bits4(hot, j));
     }
-    if (tid == 0) {
-      unsigned int above = 0;
-      int sel = 0;
-      for (int b = 255; b >= 0; --b) {
-        if (above + hist[b] >= krem) {
-          sel = b;
-          break;
+  }
+  if (r1 < c1) {
+    const float pad = penalize(REPRO_NEG_INF, 0, 0, rp, pr, fr, tm);
+    const uint32_t pad_ord = ord_bits(pad);
+    for (int j = r1 + tid; j < c1; j += FUSED_THREADS) {
+      key32[j - c0] = pad_ord;
+      mass_add(m, s_tot, s_hot, pad, true, false);
+    }
+  }
+  block_mass_reduce(m, s_tot, s_hot, scratch);     // ends in __syncthreads
+  if (tid == 0) {
+    state[0] = m;
+    state[1] = s_tot;
+    state[2] = s_hot;
+    state[3] = 0.0f;
+  }
+
+  // -- B: the range's min(K, n) largest keys --------------------------------
+  const int Kl = min(K, n);
+  uint32_t thr = 0;       // take order bits >= thr (or > thr when strict)
+  bool strict = false;
+  unsigned int need = 0;  // strict: keys equal to thr still wanted
+  if (Kl < n) {
+    uint32_t prefix = 0, pmask = 0;
+    unsigned int krem = (unsigned int)Kl;
+    for (int shift = 24;; shift -= 8) {
+      for (int i = tid; i < FUSED_WARPS * 256; i += FUSED_THREADS)
+        hist[i] = 0;
+      __syncthreads();
+      uint32_t* wh = hist + warp * 256;
+      for (int b = 0; b < n; b += FUSED_THREADS) {
+        const int i = b + tid;
+        const uint32_t k = i < n ? key32[i] : 0u;
+        const bool act = i < n && (k & pmask) == prefix;
+        const unsigned am = __ballot_sync(REPRO_FULL_MASK, act);
+        if (act) {
+          const uint32_t d = (k >> shift) & 0xFFu;
+          const unsigned peers = __match_any_sync(am, d);
+          if (lane == __ffs(peers) - 1)
+            atomicAdd(wh + d, (unsigned int)__popc(peers));
         }
-        above += hist[b];
       }
-      s_prefix = prefix | ((uint64_t)sel << shift);
-      s_mask = pmask | ((uint64_t)0xFF << shift);
-      s_krem = krem - above;
-      // every key left in the bin is wanted: the threshold is reached
-      s_done = (hist[sel] == krem - above) || shift == 0;
-    }
-    __syncthreads();
-    prefix = s_prefix;
-    pmask = s_mask;
-    krem = s_krem;
-    const int done = s_done;
-    __syncthreads();
-    if (done) break;
-  }
-
-  // -- pass 3: gather the K largest keys, bitonic sort descending -----------
-  int P2 = 1;
-  while (P2 < K) P2 <<= 1;
-  if (tid == 0) s_count = 0;
-  for (int i = K + tid; i < P2; i += nt) keys[i] = 0;
-  __syncthreads();
-  for (int j = tid; j < Vp; j += nt) {
-    const uint64_t key = sort_key(zs_at(r, j), j);
-    if (key >= prefix) {
-      const unsigned int pos = atomicAdd(&s_count, 1u);
-      if (pos < (unsigned int)K) keys[pos] = key;
-    }
-  }
-  __syncthreads();
-  for (int size = 2; size <= P2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < P2; i += nt) {
-        const int partner = i ^ stride;
-        if (partner > i) {
-          const uint64_t a = keys[i], b = keys[partner];
-          const bool desc = (i & size) == 0;
-          if (desc ? (a < b) : (a > b)) {
-            keys[i] = b;
-            keys[partner] = a;
+      __syncthreads();
+      if (tid < 256) {
+        unsigned int t = 0;
+        for (int w = 0; w < FUSED_WARPS; ++w) t += hist[w * 256 + tid];
+        hist[tid] = t;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // lane l holds bins 255 - 8l down to 248 - 8l
+        unsigned int c[8], s = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          c[q] = hist[255 - 8 * lane - q];
+          s += c[q];
+        }
+        unsigned int inc = s;
+        for (int off = 1; off < 32; off <<= 1) {
+          const unsigned int t = __shfl_up_sync(REPRO_FULL_MASK, inc, off);
+          if (lane >= off) inc += t;
+        }
+        const unsigned int excl = inc - s;
+        const unsigned hit =
+            __ballot_sync(REPRO_FULL_MASK, excl < krem && inc >= krem);
+        if (lane == __ffs(hit) - 1) {
+          unsigned int above = excl, cnt = 0;
+          int q_sel = 0;
+          bool found = false;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {      // the first bin from the top
+            if (!found) {
+              if (above + c[q] >= krem) {
+                found = true;
+                q_sel = q;
+                cnt = c[q];
+              } else {
+                above += c[q];
+              }
+            }
           }
+          const uint32_t sel = (uint32_t)(255 - 8 * lane - q_sel);
+          s_sel[0] = prefix | (sel << shift);
+          s_sel[1] = krem - above;
+          s_sel[2] = cnt == krem - above;   // every key of the bin wanted
         }
       }
       __syncthreads();
+      prefix = s_sel[0];
+      krem = s_sel[1];
+      const bool whole_bin = s_sel[2] != 0;
+      pmask |= 0xFFu << shift;
+      if (whole_bin || shift == 0) {
+        thr = prefix;
+        strict = !whole_bin;
+        need = krem;
+        break;
+      }
     }
   }
+  for (int i = tid; i < L; i += FUSED_THREADS) list[i] = 0;
+  if (tid == 0) s_count = 0;
+  __syncthreads();
+  for (int b = 0; b < n; b += FUSED_THREADS) {
+    const int i = b + tid;
+    const uint32_t k = i < n ? key32[i] : 0u;
+    const bool take = i < n && (strict ? k > thr : k >= thr);
+    const unsigned bm = __ballot_sync(REPRO_FULL_MASK, take);
+    if (bm) {
+      unsigned int pos = 0;
+      if (lane == 0) pos = atomicAdd(&s_count, (unsigned int)__popc(bm));
+      pos = __shfl_sync(REPRO_FULL_MASK, pos, 0);
+      if (take) list[pos + __popc(bm & lanes_below)] = key_at(k, c0 + i);
+    }
+  }
+  if (strict) {
+    // the lowest columns holding the threshold value, in column order
+    __syncthreads();
+    const unsigned int above = s_count;
+    unsigned int seen = 0;
+    for (int b = 0; b < n && seen < need; b += FUSED_THREADS) {
+      const int i = b + tid;
+      const bool eq = i < n && key32[i] == thr;
+      const unsigned bm = __ballot_sync(REPRO_FULL_MASK, eq);
+      if (lane == 0) iscratch[warp] = __popc(bm);
+      __syncthreads();
+      unsigned int before = 0, total = 0;
+      for (int w = 0; w < FUSED_WARPS; ++w) {
+        const unsigned int c = (unsigned int)iscratch[w];
+        before += w < warp ? c : 0u;
+        total += c;
+      }
+      const unsigned int rk = seen + before + __popc(bm & lanes_below);
+      if (eq && rk < need) list[above + rk] = key_at(thr, c0 + i);
+      seen += total;
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+  bitonic_sort(list, L);
 
-  // -- pass 4: truncation-first filter + restricted Gumbel-max draw ---------
-  const float v0 = from_ord((uint32_t)(keys[0] >> 32));
+  // -- C: the cluster merges its lists; rank 0 draws -------------------------
+  cl.sync();                      // every list sorted, every state written
+  if (rank == 0 && warp == 0) {
+    float unused;
+    cluster_mass_merge(cl, state, C, m, s_tot, s_hot, unused);
+    if (lane == 0) {
+      fin[0] = s_tot;
+      fin[1] = s_hot;
+    }
+  }
+  // level s: each rank r that is a multiple of 2s keeps the larger of its
+  // key i and key L-1-i of rank r+s (through distributed shared memory):
+  // the top L of both lists as a bitonic sequence, merged descending.
+  // The levels run on C/2, C/4, ... SMs at once; a rank's list is read
+  // once, after which it is left alone until the cluster exits.
+  for (int s = 1; s < C; s <<= 1) {
+    if ((rank & (2 * s - 1)) == 0) {
+      const uint64_t* other = cl.map_shared_rank(list, rank + s);
+      for (int i = tid; i < L; i += FUSED_THREADS) {
+        const uint64_t b = other[L - 1 - i];
+        if (b > list[i]) list[i] = b;
+      }
+      __syncthreads();
+      bitonic_merge(list, L);
+    }
+    cl.sync();
+  }
+  if (rank != 0) return;
+  __syncthreads();
+  s_tot = fin[0];
+  s_hot = fin[1];
+  const uint64_t* keys = list;     // the row's K largest keys, descending
+
+  // truncation-first filter + restricted Gumbel-max draw
+  float* w_s = reinterpret_cast<float*>(hist);
+  float* p_s = w_s + K;
+  float* cum_s = p_s + K;
+  const float v0k = from_ord((uint32_t)(keys[0] >> 32));
   const int tk = top_k[row];
   const float tp = top_p[row], mp = min_p[row];
   const int kk = tk > 0 ? (tk < K ? tk : K) : K;
   float part = 0.0f;
-  for (int i = tid; i < K; i += nt) {
-    const float w = expf(from_ord((uint32_t)(keys[i] >> 32)) - v0);
+  for (int i = tid; i < K; i += FUSED_THREADS) {
+    const float w = expf(from_ord((uint32_t)(keys[i] >> 32)) - v0k);
     w_s[i] = w;
     part += w * (i < kk ? 1.0f : 0.0f);
   }
   const float subset_total = block_sum(part, scratch);
   const float norm_total = tk > 0 ? subset_total : s_tot;
   const float denom = fmaxf(norm_total, 1e-30f);
-  for (int i = tid; i < K; i += nt)
+  for (int i = tid; i < K; i += FUSED_THREADS)
     p_s[i] = w_s[i] * (i < kk ? 1.0f : 0.0f) / denom;
   __syncthreads();
-  if (tid == 0) {
-    float c = 0.0f;
-    for (int i = 0; i < K; ++i) {
+  {
+    // inclusive scan of p_s: a run of `per` entries a thread, then an
+    // exclusive scan of the runs across the block, in a fixed order
+    const int per = (K + FUSED_THREADS - 1) / FUSED_THREADS;
+    const int i0 = min(tid * per, K), i1 = min(i0 + per, K);
+    float run = 0.0f;
+    for (int i = i0; i < i1; ++i) run += p_s[i];
+    float inc = run;
+    for (int off = 1; off < 32; off <<= 1) {
+      const float t = __shfl_up_sync(REPRO_FULL_MASK, inc, off);
+      if (lane >= off) inc += t;
+    }
+    float c = __shfl_up_sync(REPRO_FULL_MASK, inc, 1);
+    if (lane == 0) c = 0.0f;
+    if (lane == 31) scratch[warp] = inc;
+    __syncthreads();
+    float before = 0.0f;
+    for (int w = 0; w < warp; ++w) before += scratch[w];
+    c = before + c;
+    for (int i = i0; i < i1; ++i) {
       c += p_s[i];
       cum_s[i] = c;
     }
+    __syncthreads();
   }
-  __syncthreads();
   const float p0 = p_s[0];
   const uint32_t row_seed = (uint32_t)(u_row[row] * 16777216.0f);
   float best = -INFINITY;
   int best_i = 0x7FFFFFFF, nkeep = 0;
-  for (int i = tid; i < K; i += nt) {
+  for (int i = tid; i < K; i += FUSED_THREADS) {
     const float p = p_s[i];
     const bool keep = i < kk && (cum_s[i] - p) < tp && p >= mp * p0;
     nkeep += keep ? 1 : 0;
@@ -203,25 +437,25 @@ __global__ void __launch_bounds__(FUSED_THREADS)
   }
   // argmax, first maximum wins
   for (int off = 16; off > 0; off >>= 1) {
-    const float b2 = __shfl_xor_sync(0xffffffffu, best, off);
-    const int i2 = __shfl_xor_sync(0xffffffffu, best_i, off);
-    nkeep += __shfl_xor_sync(0xffffffffu, nkeep, off);
+    const float b2 = __shfl_xor_sync(REPRO_FULL_MASK, best, off);
+    const int i2 = __shfl_xor_sync(REPRO_FULL_MASK, best_i, off);
+    nkeep += __shfl_xor_sync(REPRO_FULL_MASK, nkeep, off);
     if (b2 > best || (b2 == best && i2 < best_i)) {
       best = b2;
       best_i = i2;
     }
   }
-  if ((tid & 31) == 0) {
-    scratch[tid >> 5] = best;
-    iscratch[tid >> 5] = best_i;
-    iscratch[32 + (tid >> 5)] = nkeep;
+  if (lane == 0) {
+    scratch[warp] = best;
+    iscratch[warp] = best_i;
+    iscratch[32 + warp] = nkeep;
   }
   __syncthreads();
   if (tid == 0) {
     best = scratch[0];
     best_i = iscratch[0];
     nkeep = iscratch[32];
-    for (int w = 1; w < (nt >> 5); ++w) {
+    for (int w = 1; w < FUSED_WARPS; ++w) {
       if (scratch[w] > best || (scratch[w] == best && iscratch[w] < best_i)) {
         best = scratch[w];
         best_i = iscratch[w];
@@ -234,13 +468,42 @@ __global__ void __launch_bounds__(FUSED_THREADS)
     const float p_last = w_s[K - 1] / denom;
     const bool minp_ok = mp > 0.0f && p_last < mp * p0;
     const bool full_mass_ok = mass_at_cap >= 1.0f - 1e-7f;
-    const int win = r.temp <= 0.0f ? 0 : best_i;
-    int tok = (int)(0xFFFFFFFFu - (uint32_t)keys[win]);
+    const int win = tm <= 0.0f ? 0 : best_i;
+    const int tok = (int)(0xFFFFFFFFu - (uint32_t)keys[win]);
     tokens[row] = tok < V - 1 ? tok : V - 1;
     exact[row] = (explicit_k || nucleus_ok || minp_ok || full_mass_ok) ? 1 : 0;
     alpha[row] = s_hot / fmaxf(s_tot, 1e-30f);
     kept[row] = nkeep;
   }
+}
+
+struct FusedLayout {
+  int C, chunk, L, smem;
+};
+
+// The launch for (B, Vp, K); false if the kernel does not take it.
+static bool fused_layout(int B, int Vp, int K, FusedLayout* f) {
+  if (B < 1 || B > FUSED_MAX_ROWS || K < 1 || K > FUSED_MAX_K || K > Vp)
+    return false;
+  const int min_c = pow2_at_least((Vp + FUSED_MAX_COLS - 1) / FUSED_MAX_COLS);
+  if (min_c > REPRO_MAX_CLUSTER) return false;
+  const RowSplit s = row_split(B, Vp, min_c);
+  f->C = s.C;
+  f->chunk = s.chunk;
+  f->L = pow2_at_least(K);
+  f->smem = s.chunk * 4 + FUSED_HIST_BYTES + f->L * 8;
+  return true;
+}
+
+// (C, chunk, L, dynamic shared bytes, threads) of the launch, or -1s.
+extern "C" void fused_sample_split(int B, int Vp, int K, int* out) {
+  FusedLayout f;
+  const bool ok = fused_layout(B, Vp, K, &f);
+  out[0] = ok ? f.C : -1;
+  out[1] = ok ? f.chunk : -1;
+  out[2] = ok ? f.L : -1;
+  out[3] = ok ? f.smem : -1;
+  out[4] = FUSED_THREADS;
 }
 
 extern "C" int fused_sample(const float* z, const int* cp, const int* co,
@@ -251,9 +514,11 @@ extern "C" int fused_sample(const float* z, const int* cp, const int* co,
                             const unsigned char* hot, int* tokens,
                             unsigned char* exact, float* alpha, int* kept,
                             int B, int V, int Vp, int K, void* stream) {
-  if (K < 1 || K > FUSED_MAX_K || K > Vp || V > Vp) return (int)cudaErrorInvalidValue;
-  fused_sample_kernel<<<B, FUSED_THREADS, 0, (cudaStream_t)stream>>>(
-      z, cp, co, rep, pres, freq, temp, top_k, top_p, min_p, u_row, hot,
-      tokens, exact, alpha, kept, V, Vp, K);
-  return (int)cudaGetLastError();
+  FusedLayout f;
+  if (V < 1 || V > Vp || !fused_layout(B, Vp, K, &f))
+    return (int)cudaErrorInvalidValue;
+  return launch_row_clusters(
+      fused_sample_kernel, f.C, B, FUSED_THREADS, (size_t)f.smem,
+      (cudaStream_t)stream, z, cp, co, rep, pres, freq, temp, top_k, top_p,
+      min_p, u_row, hot, tokens, exact, alpha, kept, V, Vp, K, f.chunk, f.L);
 }

@@ -74,6 +74,69 @@ def test_kernels_match_plain_versions(B, V, hot):
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
 
 
+def _hazard_rows(x, V, chunk, C):
+    """Row 0 (τ = 0): equal maxima at column 3 of each CTA's range, zero
+    counts there; row 1: all equal, zero counts; row 2: -1e30 on its first
+    two thirds; last row: top_k = 1. Returns row 0's tied columns."""
+    B = x["z"].shape[0]
+    ties = sorted({min(r * chunk + 3, V - 1) for r in range(C)})
+    x["temp"][0] = 0.0
+    x["z"][0, ties] = 30.0
+    x["cp"][0, ties] = 0
+    x["co"][0, ties] = 0
+    if B > 1:
+        x["top_k"][-1] = 1
+    if B > 2:
+        x["z"][1] = 0.25
+        x["cp"][1] = 0
+        x["co"][1] = 0
+    if B > 3:
+        x["z"][2, :2 * V // 3] = -1e30
+    return ties
+
+
+@pytest.mark.parametrize("B,V,block_v", [
+    (8, 300, 2048), (8, 2049, 2049), (3, 4100, 4100), (8, 50021, 2048),
+    (1, 49152, 2048), (8, 49152, 2048), (64, 151936, 2048)])
+def test_cluster_split_hazards(B, V, block_v):
+    """The row split over a cluster: CTAs with fewer than K columns (V =
+    2049 and 4100 as one tile), rows not 16-byte aligned (V odd), equal
+    maxima in different CTAs (the lowest column wins), an all-equal row,
+    -1e30 entries, τ = 0 and top_k = 1 rows, B = 1 and B = 64; two
+    launches give the same bits."""
+    dev = _cuda()
+    x = _inputs(B, V, V + B, dev, "random")
+    Vp = -(-V // block_v) * block_v
+    sf = fused_kernel.split(B, Vp, min(256, Vp))
+    ties = _hazard_rows(x, V, sf["chunk"], sf["C"])
+    zs = ref.penalty_ref(*[x[k] for k in _PEN])
+    got = shvs_kernel.shvs_masses(zs, x["hot"])
+    again = shvs_kernel.shvs_masses(zs, x["hot"])
+    want = ref.shvs_mass_ref(zs, x["hot"])
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    f = [x[k] for k in _FUSED]
+    got = fused_kernel.fused_sample(*f, k_cap=256, block_v=block_v)
+    again = fused_kernel.fused_sample(*f, k_cap=256, block_v=block_v)
+    want = ref.fused_sample_ref(*f, k_cap=256, block_v=block_v)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    for i in (0, 1, 3):                  # tokens, exact, kept
+        assert torch.equal(got[i], want[i])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    assert int(got[0][0]) == ties[0]
+
+
+def test_cluster_split_sizes():
+    """More than one CTA a row at the main path's B = 8, V = 49152."""
+    _cuda()
+    assert shvs_kernel.split(8, 49152)["C"] == 16
+    assert fused_kernel.split(8, 49152, 256)["C"] == 16
+    assert fused_kernel.split(64, 153600, 256)["C"] == 16
+    assert fused_kernel.split(8, 2049, 256)["C"] == 2
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     dev = _cuda()
     z = torch.zeros((2, 64), device=dev)
@@ -84,6 +147,12 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         shvs_kernel.shvs_masses(z.double(), hot)
     with pytest.raises(ValueError, match="CUDA"):
         shvs_kernel.shvs_masses(z.cpu(), hot.cpu())
+    zi = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+    row = torch.ones(2, device=dev)
+    args = (z, zi, zi, row, row, row, row, zi[:, 0].contiguous(), row, row,
+            row, hot)
+    with pytest.raises(ValueError, match="K <= 1024"):
+        fused_kernel.fused_sample(*args, k_cap=2048, block_v=2048)
 
 
 @pytest.mark.parametrize("B,V,seed", [(1, 300, 0), (3, 50021, 42),
