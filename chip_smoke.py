@@ -6,7 +6,10 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-   per source, in parallel), printing the nvcc commands and ptxas lines;
+   per source, in parallel), printing the nvcc commands and ptxas lines,
+   then, where the toolkit has ``cuobjdump``, ``gumbel_argmax_kernel``'s
+   registers, stack and local memory and the instructions of its float4
+   loop (the whole SASS goes to ``chiprun_out/gumbel_argmax_kernel.sass``);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes (B = 8, V = 49152, H = 1024, k_cap = 256) and at
    edge shapes (B = 1 and 3, a V no block size divides, τ = 0 rows,
@@ -17,7 +20,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the main path's, warm in L2, and B = 64, V = 151936 (qwen3-8b's
    vocabulary), cold: calls rotate over copies of the inputs whose bytes
    exceed twice the L2. Each kernel's record carries its share of its
-   bound (bound ms / kernel ms) at both;
+   bound (bound ms / kernel ms) at both. The cluster split of
+   ``shvs_masses``, ``fused_sample`` and ``gumbel_argmax`` is held to its
+   hazards (``check_split``, ``check_gumbel_split``), and
+   ``gumbel_argmax``'s noise to ``-logf(-logf(u))`` bit for bit at all
+   2^32 hash values; its issue floor (SASS instructions a column over the
+   schedulers' rate at the SM clock) is printed beside its time;
 3. hold the port's CUDA forward against its CPU forward on a small f32
    model (the CPU forward is what the tests hold against the reference);
 4. serve 8 seeded requests of 16 new tokens at the full width of
@@ -38,6 +46,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    shapes may round differently, so equality is not asserted);
 5. profile steady-state decode steps of those engines (host wall time,
    device busy time and idle share, launches per step).
+
+``python3 chip_smoke.py --time-only [--src DIR]`` builds and runs phase 2's
+timing alone, of the package under DIR (default ``src``), and prints one
+JSON line: two trees are compared in one call by running it on each, in
+turns.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -63,6 +76,12 @@ V_ODD = 50021                  # divisible by no power-of-two block
 PAGED = dict(cache="paged", block_size=16, num_blocks=16, prompt_chunk=64)
 PAGED_NEW = 32                 # new tokens a request on the paged path
 U_ONE_SEED, U_ONE_COL = 324, 32466   # hash(324, 0, 32466) rounds to u = 1
+# (B, V) of check_gumbel_split -> (seed, column): the hash gives u == 1.0
+# at that column of row B - 1 and at no lower column of that row
+GUMBEL_U_ONE = {(8, 300): (54539826, 226), (8, 2049): (4864, 1572),
+                (3, 4100): (280, 629), (8, 50021): (347, 15666),
+                (1, 49152): (324, 32466), (8, 49152): (347, 15666),
+                (64, 151936): (170, 142141)}
 BLOCK_V = 2048                 # the fused backend's tiling
 SLEEP_CYCLES = 400_000_000     # about 0.2 s of device sleep at 1.98 GHz
 SLEEP_MS = 150.0               # the least that sleep lasts on the card
@@ -236,6 +255,7 @@ def check_kernels(dev):
               f"u == 1.0 at column {U_ONE_COL}): ok")
 
     check_split(gen, dev, err)
+    check_gumbel_split(gen, dev)
     timing = {"main": time_kernels(B_MAIN, V_MAIN, gen, dev, 1, 1),
               "large": time_kernels(B_LARGE, V_LARGE, gen, dev, 3, 2)}
     bounds = {"main": kernel_bounds(B_MAIN, V_MAIN),
@@ -302,6 +322,70 @@ def check_split(gen, dev, err):
               f"{sf['chunk']} smem {sf['smem_bytes']} B; equal maxima at "
               f"columns {ties} (row 0 took {int(got[0][0])}); two launches "
               f"bit-equal: ok")
+
+
+def check_gumbel_split(gen, dev):
+    """Phase 2: ``gumbel_argmax``'s noise against ``-logf(-logf(u))`` at
+    every hash value, then its cluster split at V = 300 (one CTA), 2049
+    and 4100 (CTAs of fewer than 2048 columns, or none), 50021 (rows not
+    16-byte aligned), B = 1, the main shape and B = 64 × V = 151936: row 0
+    holds +inf at column 3 of every CTA's range (the lowest must win), row
+    1 NaNs in two or three CTAs' ranges (the first must win; V = 300 has
+    one CTA, which gets two), row 2 -1e30 on its first two thirds; then an
+    operand of -1e30 rows under a seed whose hash gives u == 1.0 in the
+    last row (``GUMBEL_U_ONE``), whose column must win; two launches must
+    give equal tokens."""
+    import torch
+    from repro_torch.kernels import gumbel_kernel, ref
+    bad = gumbel_kernel.noise_check(dev)
+    assert bad == 0, f"gumbel noise differs from -logf(-logf(u)) at {bad} " \
+        "hash values"
+    print("gumbel_argmax noise ≡ -logf(-logf(u)) bit for bit at all 2^32 "
+          "hash values: ok")
+    for B, V in GUMBEL_U_ONE:
+        sg = gumbel_kernel.split(B, V)
+        C, chunk = sg["C"], sg["chunk"]
+        z = torch.randn((B, V), generator=gen, device=dev) * 2.0
+        infs = sorted({min(r * chunk + 3, V - 1) for r in range(C)})
+        z[0, infs] = float("inf")
+        nans = sorted({min(r * chunk + 5, V - 1) for r in {C // 2, C - 1}}
+                      | {min(max(C // 2 - 1, 0) * chunk + 9, V - 1)})
+        if B > 1:
+            z[1, nans] = float("nan")
+        if B > 2:
+            z[2, :2 * V // 3] = -1e30
+        got = gumbel_kernel.gumbel_argmax(z, 1234)
+        again = gumbel_kernel.gumbel_argmax(z, 1234)
+        want = ref.gumbel_argmax_ref(z, 1234)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), \
+            f"gumbel_argmax: two launches differ at B={B} V={V}"
+        assert torch.equal(got, want), (
+            f"gumbel_argmax differs at B={B} V={V}: {got.tolist()} vs "
+            f"{want.tolist()}")
+        assert int(got[0]) == infs[0], ("the lowest +inf must win", infs,
+                                        int(got[0]))
+        if B > 1:
+            assert int(got[1]) == nans[0], ("the first NaN must win", nans,
+                                            int(got[1]))
+        seed, col = GUMBEL_U_ONE[B, V]
+        u = ref._hash_uniform(seed, torch.tensor(B - 1), torch.arange(V))
+        assert float(u[col]) == 1.0 and not bool((u[:col] == 1.0).any())
+        z = torch.full((B, V), -1e30, device=dev)
+        got = gumbel_kernel.gumbel_argmax(z, seed)
+        want = ref.gumbel_argmax_ref(z, seed)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and int(got[-1]) == col, (
+            f"gumbel_argmax u == 1.0 at B={B} V={V} seed={seed}: "
+            f"{got.tolist()} vs {want.tolist()}, column {col}")
+        print(f"split check gumbel_argmax B={B} V={V}: C={C} grid "
+              f"{sg['grid']} chunk {chunk} threads {sg['threads']} "
+              f"(clusters resident at once: {sg['max_active_clusters']}); "
+              f"+inf at columns {infs[:4]}"
+              f"{'...' if len(infs) > 4 else ''} (row 0 took "
+              f"{infs[0]}); NaN at {nans if B > 1 else '-'}; u == 1.0 in a "
+              f"-1e30 row at column {col} (seed {seed}); two launches "
+              f"equal: ok")
 
 
 def hazard_rows(x, V, chunk, C):
@@ -724,7 +808,179 @@ def _leaves(tree):
             yield v
 
 
+SHAPES = (("main", (B_MAIN, V_MAIN)), ("large", (B_LARGE, V_LARGE)))
+
+
+def timing_record(timing, bounds, name, shape, B, V):
+    """One kernel's numbers at one shape, from phase 2's timing and bounds;
+    returns the record and the bytes its bound counts."""
+    k_ms, p_ms, launch_ms, p_blocked = timing[shape][name]
+    b_ms, b_by, nbytes = bounds[shape][name]
+    return {"B": B, "V": V, "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / k_ms,
+            "library_ms": None, "launch_ms": launch_ms,
+            "plain_blocked_host": p_blocked}, nbytes
+
+
+def print_timing(name, shape, t, nbytes, launches, card):
+    waited = " (plain call waited on the stream)" \
+        if t["plain_blocked_host"] else ""
+    print(f"{name} B={t['B']} V={t['V']} "
+          f"({'warm in L2' if shape == 'main' else 'cold, rotated'}):"
+          f" kernel {t['ms']:.4f} ms on the device ({t['launch_ms']:.4f} ms "
+          f"a call with launch overhead), plain {t['plain_ms']:.4f} ms"
+          f"{waited}, bound {t['bound_ms']:.5f} ms ({nbytes} bytes), share of bound "
+          f"{t['share']:.1%}, launches {launches} [{card}]")
+
+
+def sass_loops(lib, kernel, path):
+    """The SASS of ``kernel`` (``cuobjdump -sass``, written to ``path``),
+    its loops (for each backward branch, the instructions from its target
+    to the branch and their opcodes) and its resources (``cuobjdump
+    -res-usage``: registers, stack, local memory). Returns None where the
+    toolkit has no cuobjdump."""
+    import collections
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = re.split(r"(?:^|\n)\s*Function : ", text)
+    body = next(f for f in funcs[1:] if f.split()[0].find(kernel) >= 0)
+    path.write_text(body)
+    insns, labels, pending = [], {}, []
+    for line in body.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not m:
+            continue
+        addr, ins = int(m.group(1), 16), m.group(2).strip()
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        op = re.sub(r"^@!?U?P[T0-9]+\s+", "", ins).split()[0]
+        insns.append((addr, op, ins))
+    loops = []
+    for addr, op, ins in insns:
+        if not op.startswith("BRA"):
+            continue
+        tgt = re.search(r"`\((\.L_x_\d+)\)|(0x[0-9a-f]+)", ins)
+        if tgt is None:
+            continue
+        to = labels.get(tgt.group(1)) if tgt.group(1) else int(tgt.group(2),
+                                                                16)
+        if to is not None and to < addr:
+            ops = [o for a, o, _ in insns if to <= a <= addr]
+            loops.append({"from": hex(to), "to": hex(addr),
+                          "instructions": len(ops),
+                          "opcodes": dict(collections.Counter(
+                              o if o.startswith("MUFU") else o.split(".")[0]
+                              for o in ops).most_common())})
+    res = subprocess.run([str(tool), "-res-usage", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    lines = res.splitlines()
+    usage = next((lines[i + 1].strip() for i, line in enumerate(lines[:-1])
+                  if "Function" in line and kernel in line), None)
+    return {"instructions": len(insns), "loops": loops, "resources": usage}
+
+
+def sm_clock_mhz(load, seconds=1.5):
+    """The SM clock (``nvidia-smi`` ``clocks.sm``, median of samples every
+    20 ms) while ``load`` is called back to back for ``seconds``."""
+    import statistics
+    import torch
+    p = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits", "--loop-ms=20"],
+                         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                         text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            load()
+        torch.cuda.synchronize()
+    finally:
+        p.terminate()
+        out = p.communicate()[0]
+    vals = [float(x) for x in out.split() if x.replace(".", "").isdigit()]
+    return statistics.median(vals) if vals else float("nan")
+
+
+def issue_floor(sass, timing, dev):
+    """The least time ``gumbel_argmax``'s float4 loop could take at each
+    shape if each of the 132 SMs' four schedulers issued one warp
+    instruction a cycle: columns x SASS instructions a column / 32 lanes /
+    528 schedulers / SM clock, at the card's top clock (``clocks.max.sm``)
+    and at the clock read while the kernel runs at B = 64. Returns
+    {shape: {...}} beside the kernel's time, or None without the SASS."""
+    import torch
+    from repro_torch.kernels import gumbel_kernel
+    loops = [lp for lp in (sass or {}).get("loops", [])
+             if "LDG" in lp["opcodes"]]
+    if not loops:
+        return None
+    per_col = loops[0]["instructions"] / 4
+    top = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    z = torch.randn((B_LARGE, V_LARGE), device=dev)
+    run = sm_clock_mhz(lambda: gumbel_kernel.gumbel_argmax(z, 1234))
+    out = {}
+    for shape, (B, V) in SHAPES:
+        k_ms = timing[shape]["gumbel_argmax"][0]
+        rec = {"instructions_a_column": per_col, "kernel_ms": k_ms,
+               "clock_max_mhz": top, "clock_run_mhz": run}
+        for name, mhz in (("max", top), ("run", run)):
+            rec[f"floor_ms_{name}"] = B * V * per_col / 32 / (132 * 4) / (
+                mhz * 1e6) * 1e3
+        out[shape] = rec
+        print(f"gumbel_argmax B={B} V={V}: issue floor "
+              f"{rec['floor_ms_max']:.4f} ms at {top:.0f} MHz, "
+              f"{rec['floor_ms_run']:.4f} ms at {run:.0f} MHz (the clock "
+              f"read under the kernel at B={B_LARGE}) ({per_col} SASS "
+              f"instructions a column, 528 schedulers); kernel {k_ms:.4f} ms")
+    return out
+
+
+def time_only(dev, card, src):
+    """``--time-only``: phase 2's timing of the four kernels at both shapes,
+    with no checks and no serving, for timing two trees in one call."""
+    import torch
+    import repro_torch
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    timing = {"main": time_kernels(B_MAIN, V_MAIN, gen, dev, 1, 1),
+              "large": time_kernels(B_LARGE, V_LARGE, gen, dev, 3, 2)}
+    bounds = {s: kernel_bounds(*bv) for s, bv in SHAPES}
+    out = {}
+    for name in ("penalty_scale", "shvs_masses", "fused_sample",
+                 "gumbel_argmax"):
+        for shape, (B, V) in SHAPES:
+            t, nbytes = timing_record(timing, bounds, name, shape, B, V)
+            out.setdefault(name, {})[shape] = t
+            print_timing(name, shape, t, nbytes, "-", card)
+    print(json.dumps({"time_only": {"package": repro_torch.__file__,
+                                    "src": src, "card": card,
+                                    "kernels": out}}))
+    return 0
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--time-only", action="store_true",
+                    help="build the kernels and run phase 2's timing only "
+                         "(no checks, no serving); prints one JSON line")
+    ap.add_argument("--src", default=None,
+                    help="with --time-only: time the repro_torch package "
+                         "under this directory instead of ./src")
+    args = ap.parse_args()
+    if args.src:
+        sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -746,6 +1002,26 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f}s: {lib.name}")
     for line in _build.BUILD_LOG:
         print(f"  {line}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    tag = f"{Path(args.src).resolve().parent.name}." if args.src else ""
+    sass = sass_loops(lib, "gumbel_argmax_kernel",
+                      out / f"{tag}gumbel_argmax_kernel.sass")
+    if sass is None:
+        print("gumbel_argmax_kernel SASS: no cuobjdump in the toolkit")
+    else:
+        # the loop that loads z is the float4 loop: four columns a pass
+        for loop in sass["loops"]:
+            if "LDG" in loop["opcodes"]:
+                print(f"gumbel_argmax_kernel SASS float4 loop {loop['from']}-"
+                      f"{loop['to']}: {loop['instructions']} instructions, "
+                      f"{loop['instructions'] / 4} a column: "
+                      f"{loop['opcodes']}")
+        print(f"gumbel_argmax_kernel SASS: {sass['instructions']} "
+              f"instructions, {len(sass['loops'])} backward branches; "
+              f"resources {sass['resources']}")
+    if args.time_only:
+        return time_only(dev, card, args.src)
 
     err, timing, bounds = check_kernels(dev)
     model_err = check_model(dev)
@@ -763,32 +1039,20 @@ def main() -> int:
         rec = {"name": mod.NAME, "route": "cuda", "source": mod.SOURCE,
                "replaces": mod.REPLACES, "launches": launch_of[mod.NAME],
                "max_abs_err": err[mod.NAME]}
-        for shape, (B, V) in (("main", (B_MAIN, V_MAIN)),
-                              ("large", (B_LARGE, V_LARGE))):
-            k_ms, p_ms, launch_ms, p_blocked = timing[shape][mod.NAME]
-            b_ms, b_by, nbytes = bounds[shape][mod.NAME]
-            t = {"B": B, "V": V, "ms": k_ms, "kernel_ms": k_ms,
-                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                 "share": b_ms / k_ms, "library_ms": None,
-                 "launch_ms": launch_ms, "plain_blocked_host": p_blocked}
+        for shape, (B, V) in SHAPES:
+            t, nbytes = timing_record(timing, bounds, mod.NAME, shape, B, V)
             if shape == "main":
                 rec.update(t)
             else:
                 rec["large"] = t
-            print(f"{mod.NAME} B={B} V={V} "
-                  f"({'warm in L2' if shape == 'main' else 'cold, rotated'}):"
-                  f" kernel {k_ms:.4f} ms on the device ({launch_ms:.4f} ms "
-                  f"a call with launch overhead), plain {p_ms:.4f} ms"
-                  f"{' (plain call waited on the stream)' if p_blocked else ''}"
-                  f", bound {b_ms:.5f} ms ({nbytes} bytes), share of bound "
-                  f"{b_ms / k_ms:.1%}, launches {launch_of[mod.NAME]} "
-                  f"[{card}]")
+            print_timing(mod.NAME, shape, t, nbytes, launch_of[mod.NAME],
+                         card)
         kernels.append(rec)
+    floor = issue_floor(sass, timing, dev)
     report = {"card": card, "torch": torch.__version__, "kernels": kernels,
               "model_check_max_abs_err": model_err, "runs": runs,
-              "step_profile": steps}
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
+              "step_profile": steps, "gumbel_sass": sass,
+              "gumbel_issue_floor": floor}
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
     assert set(ops.launch_counts()) == {k["name"] for k in kernels}
     print(json.dumps({"kernels": kernels}))

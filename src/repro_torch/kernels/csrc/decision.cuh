@@ -29,18 +29,30 @@ __device__ __forceinline__ uint64_t sort_key(float v, int j) {
   return ((uint64_t)ord_bits(v) << 32) | (uint64_t)(0xFFFFFFFFu - (uint32_t)j);
 }
 
-// ref._hash_uniform(seed, b, v), bit for bit. The result lies in (0, 1]:
-// the top 128 hash values round to 2^32 in the uint32 -> f32 conversion,
-// so u == 1.0 there, as in the reference.
-__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t b,
-                                              uint32_t v) {
-  uint32_t x = (b * 2654435761u) ^ (v * 40503u) ^ seed;
+// The two halves of ref._hash_uniform: hash_mix takes the key
+// x = (b * 2654435761u) ^ (v * 40503u) ^ seed to the hash value, and
+// hash_to_uniform takes that to u in (0, 1]. The top 128 hash values
+// (>= HASH_U_ONE) round to 2^32 in the uint32 -> f32 conversion, so
+// u == 1.0 there, as in the reference.
+#define HASH_U_ONE 0xFFFFFF80u
+
+__device__ __forceinline__ uint32_t hash_mix(uint32_t x) {
   x ^= x >> 16;
   x *= 2246822519u;
   x ^= x >> 13;
   x *= 3266489917u;
   x ^= x >> 16;
-  return ((float)x + 0.5f) * (1.0f / 4294967296.0f);
+  return x;
+}
+
+__device__ __forceinline__ float hash_to_uniform(uint32_t h) {
+  return ((float)h + 0.5f) * (1.0f / 4294967296.0f);
+}
+
+// ref._hash_uniform(seed, b, v), bit for bit.
+__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t b,
+                                              uint32_t v) {
+  return hash_to_uniform(hash_mix((b * 2654435761u) ^ (v * 40503u) ^ seed));
 }
 
 // Eq. 1 penalties, then / max(temperature, 1e-6): op for op as
@@ -196,10 +208,10 @@ __device__ __forceinline__ void cluster_mass_merge(cg::cluster_group& cl,
   }
 }
 
-// How shvs.cu and fused.cu split a row of `cols` columns over a cluster
-// of C CTAs, each owning `chunk` contiguous columns (the last ones what is
-// left, possibly none). C is the smallest power of two with B * C >= 528
-// (four CTAs for each of the 132 SMs), at most 16 and at least
+// How shvs.cu, fused.cu and gumbel.cu split a row of `cols` columns over a
+// cluster of C CTAs, each owning `chunk` contiguous columns (the last ones
+// what is left, possibly none). C is the smallest power of two with
+// B * C >= 528 (four CTAs for each of the 132 SMs), at most 16 and at least
 // `min_clusters` (a kernel's cap on columns a CTA); then chunk is
 // ceil(cols / C) rounded up to 16, but at least REPRO_MIN_COLS, and C is
 // cut to the power of two at or above ceil(cols / chunk). So no CTA but

@@ -135,6 +135,61 @@ def test_cluster_split_sizes():
     assert fused_kernel.split(8, 49152, 256)["C"] == 16
     assert fused_kernel.split(64, 153600, 256)["C"] == 16
     assert fused_kernel.split(8, 2049, 256)["C"] == 2
+    sg = gumbel_kernel.split(8, 49152)
+    assert (sg["C"], sg["chunk"], sg["threads"]) == (16, 3072, 256)
+    sg = gumbel_kernel.split(64, 151936)
+    assert (sg["C"], sg["grid"], sg["chunk"]) == (16, (16, 64), 9504)
+    assert sg["max_active_clusters"] > 0
+    assert gumbel_kernel.split(8, 300)["C"] == 1
+    assert gumbel_kernel.split(3, 4100)["C"] == 4
+
+
+def test_gumbel_noise_is_logf_at_every_hash_value():
+    """The kernel's noise (logf without its special-case paths) equals
+    -logf(-logf(u)) bit for bit at all 2^32 hash values."""
+    assert gumbel_kernel.noise_check(_cuda()) == 0
+
+
+# (B, V) -> (seed, column): the hash gives u == 1.0 at that column of row
+# B - 1 and at no lower column of that row
+GUMBEL_U_ONE = {(8, 300): (54539826, 226), (8, 2049): (4864, 1572),
+                (3, 4100): (280, 629), (8, 50021): (347, 15666),
+                (1, 49152): (324, 32466), (8, 49152): (347, 15666),
+                (64, 151936): (170, 142141)}
+
+
+@pytest.mark.parametrize("B,V", list(GUMBEL_U_ONE))
+def test_gumbel_cluster_split_hazards(B, V):
+    """The row split of gumbel_argmax: one CTA (V = 300), CTAs of fewer
+    than 2048 columns or none (V = 2049, 4100), rows not 16-byte aligned
+    (V odd), B = 1 and B = 64. +inf at column 3 of every CTA's range (the
+    lowest wins), NaNs in two or three ranges (the first wins), -1e30
+    entries, and a -1e30 operand under a seed whose u == 1.0 column must
+    win; two launches give equal tokens."""
+    dev = _cuda()
+    sg = gumbel_kernel.split(B, V)
+    C, chunk = sg["C"], sg["chunk"]
+    z = np.random.default_rng(V + B).normal(0, 2, (B, V)).astype(np.float32)
+    infs = sorted({min(r * chunk + 3, V - 1) for r in range(C)})
+    nans = sorted({min(r * chunk + 5, V - 1) for r in {C // 2, C - 1}}
+                  | {min(max(C // 2 - 1, 0) * chunk + 9, V - 1)})
+    z[0, infs] = np.inf
+    if B > 1:
+        z[1, nans] = np.nan
+    if B > 2:
+        z[2, :2 * V // 3] = -1e30
+    zt = torch.from_numpy(z).to(dev)
+    got = gumbel_kernel.gumbel_argmax(zt, 1234)
+    assert torch.equal(got, gumbel_kernel.gumbel_argmax(zt, 1234))
+    assert torch.equal(got, ref.gumbel_argmax_ref(zt, 1234))
+    assert int(got[0]) == infs[0]
+    if B > 1:
+        assert int(got[1]) == nans[0]
+    seed, col = GUMBEL_U_ONE[B, V]
+    zt = torch.full((B, V), -1e30, device=dev)
+    got = gumbel_kernel.gumbel_argmax(zt, seed)
+    assert torch.equal(got, ref.gumbel_argmax_ref(zt, seed))
+    assert int(got[-1]) == col
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():

@@ -76,6 +76,57 @@ def test_nan_and_ties_follow_jnp_argmax():
         assert got[1] == 1                       # the first NaN wins
 
 
+# (B, V) -> (seed, column): the hash gives u == 1.0 at that column of row
+# B - 1 and at no lower column of that row (the table of chip_smoke.py's
+# and test_torch_gpu.py's split checks; the cases of V <= 50021 here)
+GUMBEL_U_ONE = {(8, 300): (54539826, 226), (8, 2049): (4864, 1572),
+                (3, 4100): (280, 629), (8, 50021): (347, 15666)}
+
+
+def _split_hazard(case):
+    """Rows that stress the kernel's split of a row into 2048-column CTA
+    ranges (V = 2049 and 4100 give ranges of 2048, 1 / 2048, 2048, 4):
+    +inf in every range, NaNs in two ranges, and -1e30 rows under a seed
+    whose hash gives u == 1.0. Returns (z, seed, the tokens it must
+    give where the hazard decides them)."""
+    kind, B, V = case
+    z = _z(B, V, seed=V)
+    if kind == "inf_ties":
+        z[0, [3, min(2051, V - 1), min(4099, V - 1)]] = np.inf
+        return z, 1234, {0: 3}
+    if kind == "two_nans":
+        z[1, [2048, 9]] = np.nan
+        z[2 % B, [V - 1, 2047]] = np.nan
+        return z, 42, {1: 9, 2 % B: 2047}
+    if kind == "u_one":
+        seed, col = GUMBEL_U_ONE[B, V]
+        return np.full((B, V), -1e30, np.float32), seed, {B - 1: col}
+    return z, 3000009007, {}
+
+
+@pytest.mark.parametrize("case", [
+    ("inf_ties", 3, 4100), ("inf_ties", 2, 2049), ("two_nans", 3, 2049),
+    ("two_nans", 4, 4100), ("random", 5, 2049), ("random", 3, 4100),
+    ("u_one", 8, 300), ("u_one", 8, 2049), ("u_one", 3, 4100),
+    ("u_one", 8, 50021)], ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}")
+def test_plain_version_matches_oracle_on_split_hazards(case):
+    """The hazards the CUDA kernel's cluster split must survive, where the
+    plain version is its yardstick: the plain version ≡ the reference
+    oracle, and the hazard decides the token (the lowest +inf, the first
+    NaN, the u == 1.0 column)."""
+    z, seed, decided = _split_hazard(case)
+    want = np.asarray(jref.gumbel_argmax_ref(jnp.asarray(z), seed))
+    got = tref.gumbel_argmax_ref(torch.from_numpy(z), seed).numpy()
+    np.testing.assert_array_equal(got, want)
+    for row, tok in decided.items():
+        assert got[row] == tok
+    if case[0] == "u_one":
+        B, V = case[1:]
+        u = np.asarray(jref._hash_uniform(seed, jnp.full((V,), B - 1),
+                                          jnp.arange(V)))
+        assert np.flatnonzero(u == 1.0)[0] == decided[B - 1]
+
+
 B, V = 8, 512
 _CORE = ("temperature", "top_k", "top_p", "min_p", "repetition_penalty",
          "presence_penalty", "frequency_penalty")
