@@ -45,7 +45,33 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    with monolithic ones and the agreement reported (bf16 GEMMs of other
    shapes may round differently, so equality is not asserted);
 5. profile steady-state decode steps of those engines (host wall time,
-   device busy time and idle share, launches per step).
+   device busy time and idle share, launches per step), and of the
+   ``shvs`` engine with the decision on the host (``sampler_mode="host"``,
+   2 workers), whose row adds the pool's stall per step;
+6. host placement, at full width through ``build_engine``: the same 8
+   seeded requests of 16 new tokens (``shvs``, contiguous, overlapped)
+   served with the decision on the device and in the host sampler pool (2
+   workers), in turns (device, host, device, host), printing tok/s, TTFT
+   and TPOT p50 and, for the host runs, the pool's transfer, sampler and
+   stall ms per step; the host runs' decode steps launch no decision
+   kernel (``penalty_scale`` and ``shvs_masses`` count the prefill draws
+   only, the device runs also every decode step); runs of one placement
+   give equal streams, and the agreement across placements is printed
+   (the card's kernels and the pool's CPU versions may round sums
+   differently); greedy ``shvs`` host ≡ device, and greedy ``gumbel`` on
+   the paged, chunked, preempting path host ≡ device; a greedy run
+   switched device → host → device mid-generation ≡ the all-device run;
+   ``sampler_mode="adaptive"`` on 24 requests finishes every request and
+   prints the controller's decisions; three steady-state host-mode steps
+   make no synchronising call; then the pool alone, on logits made on the
+   card from a seed, at B = 8, V = 49152 and B = 64, V = 151936, 20
+   submits each at 1, 2, 4 and 8 workers (capped at ``os.cpu_count()``):
+   median transfer and sampler ms, tokens equal across worker counts.
+
+``python3 chip_smoke.py --host-only`` builds the kernels and runs phase 5's
+``shvs`` rows on the device and in the host pool, in turns, and the pool
+alone at the main shape, printing one JSON line: run it under different
+threading settings, one process each.
 
 ``python3 chip_smoke.py --time-only [--src DIR]`` builds and runs phase 2's
 timing alone, of the package under DIR (default ``src``), and prints one
@@ -735,24 +761,29 @@ def serve_paged(dev, card):
     return out, counts
 
 
-def profile_steps(dev, card):
+def profile_steps(dev, card, names=None):
     """Phase 5: where a steady-state decode step's time goes on each path
     (full width, batch 8): host wall time per step, device busy time per
     step (sum of kernel times from torch.profiler), the idle share, kernel
     launches per step, and the decision-plane kernels' share. The paged
     row uses the second path's batch and chunk width with a pool that
     holds every slot (no preemption inside the window); its long prompts
-    are prefilled before the window."""
+    are prefilled before the window. The host-mode row also gives the
+    engine's block on the pool's ticket per step (stall) and the wall less
+    that block (the engine thread's own work)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import synth_requests
     out = {}
     paths = (("shvs", "shvs", {}), ("fused", "fused", {}),
              ("gumbel_paged", "gumbel",
-              dict(cache="paged", block_size=16, prompt_chunk=64)))
+              dict(cache="paged", block_size=16, prompt_chunk=64)),
+             ("shvs_host", "shvs", dict(sampler_mode="host", samplers=2)))
+    if names is not None:
+        paths = [next(p for p in paths if p[0] == n) for n in names]
     for name, algorithm, kw in paths:
         eng = engine(algorithm, dev, **kw)
-        if kw:
+        if "cache" in kw:
             eng.submit(paged_requests(V_MAIN, max_new=64))
         else:
             eng.submit(synth_requests(8, V_MAIN, 64, seed=0))
@@ -760,11 +791,13 @@ def profile_steps(dev, card):
             eng.step()
         torch.cuda.synchronize()
         n = 10
+        mark = len(eng.stats_log)
         t0 = time.perf_counter()
         for _ in range(n):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
+        window = list(eng.stats_log)[mark:]
         n_prof = 5
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -793,10 +826,240 @@ def profile_steps(dev, card):
                           "idle_share": 1.0 - busy_ms / wall_ms,
                           "launches_per_step": launches / n_prof,
                           "decision_kernels_ms_per_step": ours}
+        host = ""
+        if kw.get("sampler_mode") == "host":
+            mean = lambda k: sum(r[k] for r in window) / len(window)
+            rec = out[name]
+            rec.update({k + "_per_step": mean(k) for k in
+                        ("stall_ms", "sampler_ms", "transfer_ms")})
+            rec["wall_less_stall_ms_per_step"] = \
+                wall_ms - rec["stall_ms_per_step"]
+            host = (f"; pool stall {rec['stall_ms_per_step']:.2f} ms/step, "
+                    f"wall less stall {rec['wall_less_stall_ms_per_step']:.2f}"
+                    f" ms/step, sampler {rec['sampler_ms_per_step']:.2f} ms, "
+                    f"transfer {rec['transfer_ms_per_step']:.2f} ms")
         print(f"step profile {name}: wall {wall_ms:.2f} ms/step, device "
               f"busy {busy_ms:.2f} ms/step (idle share "
               f"{1.0 - busy_ms / wall_ms:.1%}), {launches / n_prof:.0f} "
-              f"launches/step, decision kernels {ours} [{card}]")
+              f"launches/step, decision kernels {ours}{host} [{card}]")
+    return out
+
+
+def token_agreement(a, b):
+    """Share of tokens equal up to each request's first difference, over
+    all tokens of two runs of the same requests."""
+    same = total = 0
+    for ra, rb in zip(a, b):
+        n = min(len(ra), len(rb))
+        same += next((i for i in range(n) if ra[i] != rb[i]), n)
+        total += max(len(ra), len(rb))
+    return same / total
+
+
+def serve_host(dev, card):
+    """Phase 6: the decision plane on the host (the sampler pool) against
+    the decision on the device, at full width through ``build_engine``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch, synth_requests
+    V = V_MAIN
+    out, seeded = {}, {"device": [], "host": []}
+    for turn, mode in enumerate(("device", "host", "device", "host")):
+        eng = engine("shvs", dev, sampler_mode=mode, samplers=2)
+        serve_batch(eng, synth_requests(2, V, 2, rng_seed=99, seed=0))  # warm
+        admits = [0]
+        admit = eng._admit
+
+        def counted(reqs, admit=admit):
+            admits[0] += 1
+            return admit(reqs)
+
+        eng._admit = counted
+        mark = len(eng.stats_log)
+        reqs = synth_requests(8, V, 16, seed=0)
+        ops.reset_launch_counts()
+        rep = serve_batch(eng, reqs)
+        counts = ops.launch_counts()
+        steps = list(eng.stats_log)[mark:]
+        eng.close()
+        for r in reqs:
+            assert r.finish_reason == "length" and len(r.output) == 16, \
+                (mode, r.request_id, r.finish_reason, len(r.output))
+            assert all(0 <= t < V for t in r.output)
+        # the host runs' decode steps launch no decision kernel: only the
+        # prefill draws (one an admission) do; the device runs launch one
+        # of each a decode step as well
+        want = admits[0] + (len(steps) if mode == "device" else 0)
+        assert counts["penalty_scale"] == counts["shvs_masses"] == want, \
+            (mode, counts, admits[0], len(steps))
+        assert admits[0] > 0
+        rep.update(launches=counts, admissions=admits[0],
+                   decode_steps=len(steps))
+        if mode == "host":
+            assert all("stall_ms" in r for r in steps)
+            mean = lambda k: sum(r[k] for r in steps) / len(steps)
+            rep.update({k: mean(k) for k in
+                        ("transfer_ms", "sampler_ms", "stall_ms")})
+        seeded[mode].append([r.output for r in reqs])
+        out[f"{mode}_run{turn // 2}"] = rep
+        pool = (f", pool per step: transfer {rep['transfer_ms']:.3f} ms, "
+                f"sampler {rep['sampler_ms']:.3f} ms, stall "
+                f"{rep['stall_ms']:.3f} ms" if mode == "host" else "")
+        print(f"serve shvs {mode} (turn {turn}): {rep['tok_per_s']:.1f} "
+              f"tok/s, TTFT p50 {rep['ttft_p50_ms']:.2f} ms, TPOT p50 "
+              f"{rep['tpot_p50_ms']:.2f} ms, launches {counts} over "
+              f"{admits[0]} admissions and {len(steps)} decode steps{pool} "
+              f"[{card}]")
+    for mode in ("device", "host"):
+        assert seeded[mode][0] == seeded[mode][1], \
+            f"two {mode} runs gave different streams"
+    agree = token_agreement(seeded["device"][0], seeded["host"][0])
+    out["seeded_host_vs_device_agreement"] = agree
+    print(f"seeded shvs: two runs of each placement equal; host vs device "
+          f"token agreement {agree:.4f} [{card}]")
+
+    greedy = {}
+    for name, algorithm, kw in (
+            ("shvs_device", "shvs", {}),
+            ("shvs_host", "shvs", dict(sampler_mode="host")),
+            ("fused_host", "fused", dict(sampler_mode="host")),
+            ("gumbel_paged_device", "gumbel", PAGED),
+            ("gumbel_paged_host", "gumbel", dict(PAGED, sampler_mode="host"))):
+        eng = engine(algorithm, dev, **kw)
+        reqs = paged_requests(V, greedy=True) if "cache" in kw else \
+            synth_requests(8, V, 16, greedy=True)
+        ops.reset_launch_counts()
+        rep = serve_batch(eng, reqs)
+        rep["launches"] = ops.launch_counts()
+        rep["preemptions"] = eng.scheduler.preemptions
+        eng.close()
+        if "cache" in kw:
+            assert rep["preemptions"] > 0, (name, "the pool was meant to "
+                                            "exhaust")
+        greedy[name] = [r.output for r in reqs]
+        out[f"greedy_{name}"] = rep
+    assert greedy["shvs_host"] == greedy["shvs_device"], \
+        "greedy shvs: host streams differ from device ones"
+    assert greedy["fused_host"] == greedy["shvs_device"], \
+        "greedy fused in the pool differs from shvs on the device"
+    assert greedy["gumbel_paged_host"] == greedy["gumbel_paged_device"], \
+        "greedy gumbel paged: host streams differ from device ones"
+    print(f"greedy host ≡ device: shvs contiguous "
+          f"({sum(map(len, greedy['shvs_host']))} tokens; fused in the pool "
+          f"too) and gumbel paged chunked "
+          f"({out['greedy_gumbel_paged_host']['preemptions']} preemptions)")
+    for name in greedy:
+        print(f"launches, greedy {name}: {out[f'greedy_{name}']['launches']}")
+
+    # device -> host -> device mid-generation, greedy: the all-device run
+    eng = engine("shvs", dev)
+    reqs = synth_requests(8, V, 16, greedy=True)
+    eng.submit(reqs)
+    steps, modes = 0, []
+    while eng.scheduler.has_work or eng.in_flight:
+        eng.step()
+        steps += 1
+        if steps in (4, 9):
+            eng.set_sampler_mode("host" if steps == 4 else "device")
+            modes.append((steps, eng.client.mode,
+                          eng.pstate.prompt_counts.device.type))
+    eng.flush()
+    eng.close()
+    assert [r.output for r in reqs] == greedy["shvs_device"], \
+        "a mid-generation switch moved the greedy streams"
+    assert modes == [(4, "host", "cpu"),
+                     (9, "device", torch.device(dev).type)], modes
+    print(f"mid-generation switch device -> host (step 4) -> device (step "
+          f"9): greedy streams ≡ all-device")
+
+    eng = engine("shvs", dev, sampler_mode="adaptive")
+    reqs = synth_requests(24, V, 16, seed=0)
+    rep = serve_batch(eng, reqs)
+    decisions = list(eng._dpc.history)
+    eng.close()
+    for r in reqs:
+        assert r.finish_reason == "length" and len(r.output) == 16
+    rep["decisions"] = [{"step": d["step"], "action": d["action"]}
+                        for d in decisions]
+    out["adaptive"] = rep
+    print(f"adaptive, 24 requests: every request finished, "
+          f"{rep['tok_per_s']:.1f} tok/s, TPOT p50 {rep['tpot_p50_ms']:.2f} "
+          f"ms, decisions {rep['decisions']} [{card}]")
+
+    # host mode's steady state never blocks the engine thread on the
+    # stream: the logits' copy is waited on by the workers, the tokens go
+    # up with a non_blocking copy, the only wait is on the ticket
+    eng = engine("shvs", dev, sampler_mode="host")
+    eng.submit(synth_requests(8, V, 8, seed=0))
+    eng.step()                  # admission reads the first tokens back
+    eng.step()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.flush()
+    eng.close()
+    print("host overlap check: 3 steady-state steps made no synchronising "
+          "call")
+    out["pool_alone"] = pool_alone(dev, card)
+    return out
+
+
+def pool_alone(dev, card, n=20,
+               shapes=((B_MAIN, V_MAIN), (B_LARGE, V_LARGE))):
+    """The sampler pool alone (the paper's sequence-parallel sampling, S1,
+    on this machine's CPUs): logits made on the card from a seed, ``n``
+    submits at each worker count; median transfer and sampler ms."""
+    import os
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.config import SamplingConfig, SHVSConfig
+    from repro_torch.core import penalties as pen
+    from repro_torch.core.decision_plane import DecisionPlane
+    from repro_torch.core.host_sampler import HostSamplerPool
+    from repro_torch.engine.engine import SlotParams
+    cpus = os.cpu_count()
+    print(f"pool alone: os.cpu_count() {cpus}, torch.get_num_threads() "
+          f"{torch.get_num_threads()}")
+    out = {"cpu_count": cpus, "torch_threads": torch.get_num_threads()}
+    for B, V in shapes:
+        gen = torch.Generator(device=dev).manual_seed(B)
+        logits = torch.randn((B, V), generator=gen, device=dev) * 1.5
+        sp = SlotParams(B, V, "cpu")
+        for b in range(B):
+            sp.set_row(b, SamplingConfig(temperature=0.8, top_k=40,
+                                         top_p=0.95, repetition_penalty=1.1,
+                                         seed=b))
+        z = torch.zeros((B, V), dtype=torch.int32)
+        args = (logits, pen.PenaltyState(z, z.clone()), sp.host_params(),
+                None, np.arange(B, dtype=np.uint32), np.zeros(B, np.int32),
+                0, np.ones(B, bool))
+        plane = DecisionPlane(V, algorithm="shvs",
+                              shvs=SHVSConfig(hot_size=H_MAIN), k_cap=K_CAP,
+                              seed=0, device=dev)
+        tokens, rows = None, {}
+        for workers in sorted({min(w, cpus) for w in (1, 2, 4, 8)}):
+            pool = HostSamplerPool(plane, workers)
+            try:
+                pool.submit(*args).result()           # warm
+                res = [pool.submit(*args).result() for _ in range(n)]
+            finally:
+                pool.close()
+            for r in res:
+                if tokens is None:
+                    tokens = r.tokens
+                assert np.array_equal(r.tokens, tokens), \
+                    f"pool tokens differ at {workers} workers, B={B} V={V}"
+            rec = {k: statistics.median(getattr(r, k) * 1e3 for r in res)
+                   for k in ("transfer_time", "sampler_time")}
+            rows[workers] = rec
+            print(f"pool alone B={B} V={V} {workers} workers: median "
+                  f"transfer {rec['transfer_time']:.3f} ms, sampler "
+                  f"{rec['sampler_time']:.3f} ms over {n} submits [{card}]")
+        out[f"B{B}_V{V}"] = rows
     return out
 
 
@@ -947,6 +1210,25 @@ def issue_floor(sass, timing, dev):
     return out
 
 
+def host_only(dev, card):
+    """``--host-only``: phase 5's ``shvs`` rows on the device and in the
+    host pool, in turns (device, host, host, device), then the pool alone
+    at the main shape; prints one JSON line. Run it under different
+    threading settings (``OMP_NUM_THREADS``, ``OMP_WAIT_POLICY``), one
+    process each, to see what slows the engine thread in host mode."""
+    import os
+    import torch
+    rows = [profile_steps(dev, card, names=(n,))
+            for n in ("shvs", "shvs_host", "shvs_host", "shvs")]
+    pool = pool_alone(dev, card, shapes=((B_MAIN, V_MAIN),))
+    env = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
+                                          "OMP_WAIT_POLICY")}
+    print(json.dumps({"host_only": {"card": card, "env": env,
+                                    "torch_threads": torch.get_num_threads(),
+                                    "rows": rows, "pool_alone": pool}}))
+    return 0
+
+
 def time_only(dev, card, src):
     """``--time-only``: phase 2's timing of the four kernels at both shapes,
     with no checks and no serving, for timing two trees in one call."""
@@ -975,6 +1257,10 @@ def main() -> int:
     ap.add_argument("--time-only", action="store_true",
                     help="build the kernels and run phase 2's timing only "
                          "(no checks, no serving); prints one JSON line")
+    ap.add_argument("--host-only", action="store_true",
+                    help="build the kernels and profile the shvs decode "
+                         "step on the device and in the host pool, in "
+                         "turns, then the pool alone; prints one JSON line")
     ap.add_argument("--src", default=None,
                     help="with --time-only: time the repro_torch package "
                          "under this directory instead of ./src")
@@ -1022,13 +1308,29 @@ def main() -> int:
               f"resources {sass['resources']}")
     if args.time_only:
         return time_only(dev, card, args.src)
+    if args.host_only:
+        return host_only(dev, card)
+
+    t_phase = time.perf_counter()
+
+    def phase_done(n):
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {n} took {now - t_phase:.1f} s")
+        t_phase = now
 
     err, timing, bounds = check_kernels(dev)
+    phase_done(2)
     model_err = check_model(dev)
+    phase_done(3)
     runs, counts = serve(dev, card)
     paged_runs, counts["gumbel_paged"] = serve_paged(dev, card)
     runs.update(paged_runs)
+    phase_done(4)
     steps = profile_steps(dev, card)
+    phase_done(5)
+    host_runs = serve_host(dev, card)
+    phase_done(6)
 
     launch_of = {"penalty_scale": counts["shvs"]["penalty_scale"],
                  "shvs_masses": counts["shvs"]["shvs_masses"],
@@ -1051,7 +1353,8 @@ def main() -> int:
     floor = issue_floor(sass, timing, dev)
     report = {"card": card, "torch": torch.__version__, "kernels": kernels,
               "model_check_max_abs_err": model_err, "runs": runs,
-              "step_profile": steps, "gumbel_sass": sass,
+              "step_profile": steps, "host_placement": host_runs,
+              "gumbel_sass": sass,
               "gumbel_issue_floor": floor}
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
     assert set(ops.launch_counts()) == {k["name"] for k in kernels}

@@ -5,6 +5,8 @@ for CUDA without a card raises instead of carrying on on the CPU.
 """
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 import torch
 
@@ -31,3 +33,33 @@ def to_device(array, device: torch.device) -> torch.Tensor:
     if device.type == "cpu":
         return t
     return t.to(device, non_blocking=True)
+
+
+class HostCopy:
+    """Tensors on their way to the host.
+
+    On CUDA the copies into pinned memory are enqueued on the current
+    stream when this object is made — behind the work that produces the
+    tensors and ahead of whatever is enqueued next — and an event marks
+    their end: :meth:`wait` waits for that event only. A plain ``.cpu()``
+    later would queue behind the next step's kernels and serialise the
+    loop. CPU tensors are cloned (later in-place updates must not reach
+    them). The pinned buffers live as long as this object."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self.event = None
+        if tensors[0].is_cuda:
+            self.vals = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in tensors]
+            for dst, src in zip(self.vals, tensors):
+                dst.copy_(src, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.vals = [t.clone() for t in tensors]
+
+    def wait(self) -> List[torch.Tensor]:
+        """The tensors on the host, once their copies have landed."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.vals

@@ -39,9 +39,33 @@ rows; a row finishing its prompt samples its first token in the chunk
 program, and that token reaches the host through the pending queue, like
 a decode step's.
 
-Host/adaptive placement, autotuning and KV migration raise
-``NotImplementedError`` naming their ROADMAP item; there is no tracer or
-metrics registry yet.
+**Host sampler mode** (``sampler_mode="host"``, DESIGN.md §13). The
+engine reaches the decision plane through a
+:class:`~repro_torch.engine.decision_client.DecisionPlaneClient`: device
+mode keeps the decision inside the decode step (everything above); host
+mode enqueues a forward-only step, starts a ``non_blocking`` copy of its
+logits into pinned memory behind it (a CUDA event marks the copy's end)
+and hands that copy, with host snapshots of the sampling rows, to the
+client's pool of CPU workers. The workers wait on the event, sample
+sequence-parallel row shards through a CPU ``DecisionPlane`` and return
+tokens and updated histograms; the engine resolves the ticket at the top
+of the next step (before admissions overwrite any slot's rows), uploads
+the tokens with a ``non_blocking`` copy and commits one step behind,
+exactly like the overlapped device loop. In host mode the (B, V)
+histograms live on the host; the prefill and chunk draws still run on the
+device, and their rows cross at admission, which waits for the prefill
+anyway. A placement switch moves the histograms once. On the CPU streams
+are bit-identical to device mode in every engine mode
+(``tests/test_torch_host.py``).
+
+``sampler_mode="adaptive"`` starts on the device and lets a
+:class:`~repro_torch.core.autotune.DecisionPlaneController` switch
+placement and resize the pool online from the engine's own step records;
+``autotune=True`` with ``hot_counts`` tracks the SHVS hot-set size H*
+(:class:`~repro_torch.core.autotune.HotSizeController`). A
+:class:`~repro_torch.obs.Telemetry` bundle (``telemetry=``) carries the
+flight-recorder tracer (off by default) and the metrics registry. KV
+migration raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -57,15 +81,18 @@ import torch
 from repro_torch.config import ModelConfig, SamplingConfig, SHVSConfig
 from repro_torch.core import penalties as pen
 from repro_torch.core.decision_plane import DecisionPlane
+from repro_torch.core.host_sampler import PoolResult, SampleTicket
 from repro_torch.core.sampling import SamplingParams
-from repro_torch.device import resolve_device, to_device
+from repro_torch.device import HostCopy, resolve_device, to_device
+from repro_torch.engine.decision_client import (DecisionPlaneClient,
+                                                canonical_sampler_mode)
 from repro_torch.engine.paged_cache import (BlockAllocator, PagedCacheConfig,
                                             init_paged_cache)
 from repro_torch.engine.request import Request, RequestState
 from repro_torch.engine.scheduler import ChunkTask, Scheduler
 from repro_torch.models.attention import flat_block_indices, scatter_block_kv
 from repro_torch.models.model import Model
-from repro_torch.obs.records import StepRecord
+from repro_torch.obs import EngineMetrics, StepRecord, Telemetry
 
 
 @dataclass
@@ -85,18 +112,23 @@ class EngineConfig:
     block_size: int = 16             # paged: tokens per KV block
     num_blocks: int = 0              # paged pool size; 0 = memory-equal to
     #                                  the contiguous cache (B * S / bs)
-    sampler_mode: str = "device"     # "host"/"adaptive" are not ported
+    sampler_mode: str = "device"     # decision plane placement (§13/§15):
+    #                                  "device" (inside the decode step) |
+    #                                  "host" (CPU sampler pool, committed
+    #                                  one step behind) | "adaptive" (a
+    #                                  DecisionPlaneController switches
+    #                                  placement and resizes the pool online)
+    samplers: int = 2                # host-mode sampler pool workers
+    pool_algorithm: Optional[str] = None   # pool-level backend override:
+    #                                  host-mode workers draw with this
+    #                                  registered backend while the engine
+    #                                  plane keeps ``algorithm`` (§14)
     stats_window: int = 4096         # stats_log ring size
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP 'Modules to port' item {item})")
-
-
-def _check_slice(ecfg: EngineConfig) -> None:
-    if ecfg.sampler_mode != "device":
-        raise _unported(f"sampler_mode={ecfg.sampler_mode!r}", 8)
 
 
 def _bucket(n: int, mult: int) -> int:
@@ -239,63 +271,50 @@ def prefill_new_rows(eng, new_requests: List[Request], step_idx: int):
     return first, rows_cache, rows_pstate, lens, bases, rids
 
 
-class _HostCopy:
-    """A step's tokens (and stats) on their way to the host.
-
-    On CUDA the copy into pinned memory is enqueued at dispatch, behind the
-    step's own kernels and ahead of the next step's, and an event marks its
-    end: the drain waits for this step only. On the CPU the values are
-    cloned at dispatch (later in-place updates must not reach them)."""
-
-    def __init__(self, tokens: torch.Tensor, stats=None):
-        vals = [tokens]
-        if stats is not None:
-            vals.append(torch.stack([s.float() for s in stats]))
-        self.event = None
-        if tokens.is_cuda:
-            self.vals = [torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                         for v in vals]
-            for dst, src in zip(self.vals, vals):
-                dst.copy_(src, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.vals = [v.clone() for v in vals]
-
-    def wait(self):
-        """(tokens, stats or None) as numpy arrays."""
-        if self.event is not None:
-            self.event.synchronize()
-        out = [v.numpy() for v in self.vals]
-        return out[0], (out[1] if len(out) > 1 else None)
+def _move_state(state: pen.PenaltyState, device) -> pen.PenaltyState:
+    """The histograms on ``device`` (a no-op where they already are). A
+    copy to the host waits for the stream; one to a card does not."""
+    return pen.PenaltyState(*(t.to(device, non_blocking=device.type != "cpu")
+                              for t in state))
 
 
 @dataclass
 class _Pending:
     """One dispatched-but-uncommitted iteration: ``kind="decode"`` a decode
-    step, ``kind="first"`` the first tokens of rows that finished their
-    prompt in a chunk program (``finishers``: (slot, request))."""
+    step (tokens and stats in ``fetch``), ``kind="host"`` a decode step
+    whose decision runs in the sampler pool (``ticket``; ``res`` once
+    resolved, ``stall`` the engine's block on it), ``kind="first"`` the
+    first tokens of rows that finished their prompt in a chunk program
+    (``finishers``: (slot, request))."""
 
-    fetch: _HostCopy
+    fetch: Optional[HostCopy] = None
     kind: str = "decode"
     step: int = -1
     active: Optional[np.ndarray] = None         # (B,) bool snapshot
     slot_request: List[Optional[Request]] = field(default_factory=list)
     finishers: List[Tuple[int, Request]] = field(default_factory=list)
+    ticket: Optional[SampleTicket] = None       # host mode: pending shards
+    res: Optional[PoolResult] = None            # host mode: resolved result
+    stall: float = 0.0                          # host mode: block on ticket
+    t_dispatch: float = 0.0                     # perf_counter at dispatch
 
 
 class Engine:
     """Serving engine over one device. ``device`` defaults to "cuda" and
-    must match where ``params`` live; CUDA without a card raises."""
+    must match where ``params`` live; CUDA without a card raises.
+
+    Optional online hot-size autotuning (paper §9 future work (i)): pass
+    ``hot_counts`` (a token-frequency vector) and ``autotune=True`` — the
+    engine feeds the measured hot mass into
+    :class:`~repro_torch.core.autotune.HotSizeController` and rebuilds the
+    hot set when H* moves."""
 
     def __init__(self, model_cfg: ModelConfig, params,
                  engine_cfg: EngineConfig, hot_set=None, hot_counts=None,
-                 autotune: bool = False, device="cuda"):
+                 autotune: bool = False, device="cuda",
+                 telemetry: Optional[Telemetry] = None):
         self._api_lock = threading.RLock()
         self._closed = False
-        _check_slice(engine_cfg)
-        if autotune or hot_counts is not None:
-            raise _unported("hot-set autotuning", 8)
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.ecfg = engine_cfg
@@ -342,10 +361,29 @@ class Engine:
             shvs=engine_cfg.shvs, hot_set=hot_set,
             k_cap=min(engine_cfg.k_cap, model_cfg.vocab_size),
             seed=engine_cfg.seed, device=self.device)
+        # "adaptive" (§15) starts on the device — the better placement at
+        # light load, where there is no sampling work to overlap — and lets
+        # the controller disaggregate online under queue pressure
+        self._adaptive = engine_cfg.sampler_mode == "adaptive"
+        # telemetry (§17): a flight-recorder tracer (off by default) plus
+        # the metrics registry; the tracer rides into the client so pool
+        # workers record their fetch/sample spans on the same clock
+        self.obs = telemetry if telemetry is not None else Telemetry()
+        self.tracer = self.obs.tracer
+        self._metrics = EngineMetrics(self.obs.metrics)
+        self.client = DecisionPlaneClient(
+            self.decision,
+            "device" if self._adaptive else engine_cfg.sampler_mode,
+            engine_cfg.samplers, pool_algorithm=engine_cfg.pool_algorithm,
+            tracer=self.tracer)
+        self._host = self.client.is_host
+        self._metrics.mode_host.set(1.0 if self._host else 0.0)
+        self._metrics.pool_workers.set(float(engine_cfg.samplers))
         self.cache = (init_paged_cache(model_cfg, B, self.pcfg,
                                        device=self.device) if self._paged
                       else self.model.init_cache(B, S, device=self.device))
-        self.pstate = self.decision.init_state(B)
+        self.pstate = _move_state(self.decision.init_state(B),
+                                  self._pstate_home)
         self.last_tokens = torch.zeros((B,), dtype=torch.int32,
                                        device=self.device)
         self._sp = SlotParams(B, model_cfg.vocab_size, self.device)
@@ -355,16 +393,50 @@ class Engine:
         self._pending: List[_Pending] = []
         self.stats_log: Deque[StepRecord] = deque(
             maxlen=engine_cfg.stats_window)
+        self._metrics.free_blocks.set(
+            float(self.alloc.num_free) if self._paged else -1.0)
+        self._hot_counts = hot_counts
+        self._controller = None
+        hot = None
+        if autotune and engine_cfg.algorithm in ("shvs", "fused"):
+            from repro_torch.core.autotune import HotSizeController
+            if hot_counts is None:
+                raise ValueError("autotune needs hot_counts")
+            hot = HotSizeController(
+                vocab_size=model_cfg.vocab_size,
+                h_current=int(self.decision.hot_set.indices.numel()))
+        self._dpc = None
+        if self._adaptive:
+            # global decision-plane controller (§15): placement + pool
+            # sizing from the per-step stat streams, H* as a sub-policy
+            from repro_torch.core.autotune import DecisionPlaneController
+            self._dpc = DecisionPlaneController(
+                mode=self.client.mode, samplers=engine_cfg.samplers,
+                queue_high=float(engine_cfg.max_batch), hot=hot)
+        else:
+            self._controller = hot
+
+    @property
+    def _pstate_home(self) -> torch.device:
+        """Where the (B, V) histograms live: with the host pool in host
+        mode, on the engine's device otherwise."""
+        return torch.device("cpu") if self._host else self.device
 
     # -- device programs ------------------------------------------------------
-    def _decode_impl(self, params, cache, pstate, last_tokens, sparams, bias,
-                     nonces, pos, step, active):
+    def _forward_impl(self, params, cache, last_tokens, active):
+        """The decode forward without the decision: returns the step's
+        logits (host mode hands them to the sampler pool)."""
         lens0 = cache["len"]
         logits, cache = self.model.decode_step(params, last_tokens, cache)
         # inactive rows (retired-but-uncommitted or empty slots) must not
         # advance their cache write offset
         cache = dict(cache)
         cache["len"] = torch.where(active, lens0 + 1, lens0)
+        return logits, cache
+
+    def _decode_impl(self, params, cache, pstate, last_tokens, sparams, bias,
+                     nonces, pos, step, active):
+        logits, cache = self._forward_impl(params, cache, last_tokens, active)
         tokens, pstate, stats = self.decision.step(
             logits, pstate, sparams, step, active=active,
             rng_tags=(nonces, pos), logit_bias=bias)
@@ -538,6 +610,13 @@ class Engine:
         """One engine iteration. Returns the StepRecord committed this call
         (lagged by one step in overlapped mode), or {} if none was."""
         plan = self.scheduler.schedule()
+        if self._host:
+            # install the in-flight ticket's tokens and histograms BEFORE
+            # admission or chunks overwrite their slots' rows: the workers
+            # sampled step t while this thread ran ahead, and step t+1's
+            # forward consumes their tokens. The request-state commit still
+            # lands at the drain point, one step behind.
+            self._resolve_host_pending()
         if plan.new_requests:
             self._admit(plan.new_requests)
         if plan.new_chunked:
@@ -554,18 +633,37 @@ class Engine:
             self._push_block_table()
         dispatched = bool(plan.active_slots.any())
         if dispatched:
-            # host arrays are copied on upload: the engine mutates
-            # _nonce/_pos/_sp after dispatch
-            tokens, self.cache, self.pstate, stats = self._decode_impl(
-                self.params, self.cache, self.pstate, self.last_tokens,
-                self._sp.as_params(), self._sp.bias_array(),
-                self._nonce.copy(), self._pos.copy(), plan.step,
-                to_device(plan.active_slots, self.device))
-            self.last_tokens = tokens
-            self._pending.append(_Pending(
-                fetch=_HostCopy(tokens, stats), step=plan.step,
-                active=plan.active_slots.copy(),
-                slot_request=list(plan.slot_request)))
+            # host arrays are copied on upload or snapshot: the engine
+            # mutates _nonce/_pos/_sp after dispatch
+            active = to_device(plan.active_slots, self.device)
+            t_disp = time.perf_counter()
+            if self._host:
+                # §13: enqueue the forward-only step and the logits' copy
+                # to pinned memory behind it, and hand the copy to the pool
+                # — the workers, not this thread, wait for the device
+                logits, self.cache = self._forward_impl(
+                    self.params, self.cache, self.last_tokens, active)
+                ticket = self.client.submit(
+                    HostCopy(logits), self.pstate, self._sp.host_params(),
+                    self._sp.host_bias(), self._nonce.copy(),
+                    self._pos.copy(), plan.step, plan.active_slots.copy())
+                self._pending.append(_Pending(
+                    kind="host", ticket=ticket, step=plan.step,
+                    active=plan.active_slots.copy(),
+                    slot_request=list(plan.slot_request),
+                    t_dispatch=t_disp))
+            else:
+                tokens, self.cache, self.pstate, stats = self._decode_impl(
+                    self.params, self.cache, self.pstate, self.last_tokens,
+                    self._sp.as_params(), self._sp.bias_array(),
+                    self._nonce.copy(), self._pos.copy(), plan.step, active)
+                self.last_tokens = tokens
+                self._pending.append(_Pending(
+                    fetch=HostCopy(tokens, torch.stack(
+                        [s.float() for s in stats])), step=plan.step,
+                    active=plan.active_slots.copy(),
+                    slot_request=list(plan.slot_request),
+                    t_dispatch=t_disp))
             self._pos += plan.active_slots
             if self._paged:
                 self._slot_len += plan.active_slots
@@ -601,8 +699,9 @@ class Engine:
         yield from generate_stream(self, requests, max_steps)
 
     def close(self) -> None:
-        """Commit in-flight iterations and refuse further submissions.
-        Idempotent, and safe on a partially constructed engine."""
+        """Commit in-flight iterations, shut down the sampler pool's worker
+        threads and refuse further submissions. Idempotent, and safe on a
+        partially constructed engine."""
         if getattr(self, "_closed", False):
             return
         lock = getattr(self, "_api_lock", None)
@@ -616,6 +715,9 @@ class Engine:
             if getattr(self, "scheduler", None) is not None and \
                     getattr(self, "_pending", None) is not None:
                 self.flush()
+            client = getattr(self, "client", None)
+            if client is not None:
+                client.close()
 
     def export_request(self, request_id: int):
         raise _unported("KV migration (export_request)", 9)
@@ -624,26 +726,136 @@ class Engine:
         raise _unported("KV migration (import_request)", 9)
 
     # -- commit ---------------------------------------------------------------
+    def _resolve(self, ent: _Pending) -> None:
+        """Block on a host-mode ticket (the measured pool stall) and install
+        its tokens (a non_blocking upload) and histograms."""
+        t0 = time.perf_counter()
+        ent.res = ent.ticket.result()
+        t1 = time.perf_counter()
+        ent.stall = t1 - t0
+        if self.tracer.enabled:
+            self.tracer.add("pool_stall", t0, t1,
+                            name=f"stall@step{ent.step}", step=ent.step)
+        self.last_tokens = to_device(ent.res.tokens, self.device)
+        self.pstate = ent.res.state
+
+    def _resolve_host_pending(self) -> None:
+        """Host mode (§13): install every in-flight ticket's sampled tokens
+        and updated histograms so the next dispatch can consume them.
+        Idempotent; the scheduler-side commit stays at the drain point."""
+        for ent in self._pending:
+            if ent.kind == "host" and ent.res is None:
+                self._resolve(ent)
+
     def _drain_one(self) -> Optional[StepRecord]:
         """Wait for the oldest pending result's tokens and commit them — the
-        only place an iteration blocks on the device. A chunk program's
-        first tokens are recorded and make no StepRecord."""
+        only place an iteration blocks on the device (device mode) or the
+        sampler pool (host mode, if not already resolved). A chunk
+        program's first tokens are recorded and make no StepRecord."""
         ent = self._pending.pop(0)
-        toks_np, stats = ent.fetch.wait()
+        if ent.kind == "host":
+            if ent.res is None:       # sequential mode drains immediately
+                self._resolve(ent)
+            toks_np, stats = ent.res.tokens, None
+        else:
+            vals = [v.numpy() for v in ent.fetch.wait()]
+            toks_np, stats = vals[0], (vals[1] if len(vals) > 1 else None)
         now = time.perf_counter()
         if ent.kind == "first":
             for slot, req in ent.finishers:
                 req.record_token(int(toks_np[slot]), now)
             return None
+        if ent.kind == "decode" and self.tracer.enabled:
+            # dispatch -> host arrival of the decode step's tokens
+            self.tracer.add("forward", ent.t_dispatch, now,
+                            name=f"decode@step{ent.step}", step=ent.step)
         self.scheduler.commit(toks_np, ent.slot_request, ent.active, now=now)
-        rec = StepRecord(step=ent.step, batch=int(ent.active.sum()),
-                         accept_rate=float(stats[0]),
-                         alpha_mean=float(stats[1]),
-                         fallback_rate=float(stats[2]),
-                         queue_depth=float(len(self.scheduler.waiting)),
-                         queue_delay_ms=self._queue_delay_ms())
+        if self.tracer.enabled:
+            self.tracer.add("commit", now, time.perf_counter(),
+                            name=f"commit@step{ent.step}", step=ent.step)
+        common = dict(step=ent.step, batch=int(ent.active.sum()),
+                      queue_depth=float(len(self.scheduler.waiting)),
+                      queue_delay_ms=self._queue_delay_ms())
+        if ent.kind == "host":
+            rec = StepRecord(accept_rate=ent.res.accept_rate,
+                             alpha_mean=ent.res.alpha_mean,
+                             fallback_rate=ent.res.fallback_rate,
+                             stall_ms=ent.stall * 1e3,
+                             sampler_ms=ent.res.sampler_time * 1e3,
+                             transfer_ms=ent.res.transfer_time * 1e3,
+                             **common)
+        else:
+            rec = StepRecord(accept_rate=float(stats[0]),
+                             alpha_mean=float(stats[1]),
+                             fallback_rate=float(stats[2]), **common)
+        if self._controller is not None:
+            new_h = self._controller.observe(rec.alpha_mean)
+            if new_h:
+                self._apply_hot_size(new_h)
+                rec.hot_size = new_h
+        if self._dpc is not None:
+            act = self._dpc.observe_record(rec)
+            if act:
+                self._apply_action(act, rec)
+        self._metrics.observe_step(rec)
+        if self._paged:
+            self._metrics.free_blocks.set(float(self.alloc.num_free))
         self.stats_log.append(rec)
         return rec
+
+    def _apply_action(self, act, rec: StepRecord) -> None:
+        """Apply a :class:`DecisionPlaneController` action and stamp it on
+        the step's record."""
+        if act.hot_size is not None:
+            self._apply_hot_size(act.hot_size)
+            rec.hot_size = act.hot_size
+        if act.samplers is not None:
+            # resolving first keeps the drained ticket's result installed
+            # before the executor recycle
+            self._resolve_host_pending()
+            self.client.resize_pool(act.samplers)
+            rec.samplers = act.samplers
+            self._metrics.pool_workers.set(float(act.samplers))
+        if act.sampler_mode is not None:
+            self.set_sampler_mode(act.sampler_mode)
+            rec.sampler_mode = act.sampler_mode
+        self._metrics.decisions.inc()
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "decision", name=f"decision@step{rec.step}", step=rec.step,
+                hot_size=act.hot_size, samplers=act.samplers,
+                sampler_mode=act.sampler_mode)
+
+    def set_sampler_mode(self, mode: str) -> bool:
+        """Re-route the decision plane online (§15): resolve the in-flight
+        host ticket FIRST — after a host->device switch the top-of-step
+        resolution no longer fires — then re-route the client and move the
+        histograms to their new home (a copy to the host waits for the
+        stream once). The per-entry ``_Pending.kind`` commits
+        mixed-placement in-flight work correctly on either side, so the
+        switch cannot move any request's stream. Returns True iff the mode
+        changed."""
+        mode = canonical_sampler_mode(mode)
+        if mode == self.client.mode:
+            return False
+        self._resolve_host_pending()
+        self.client.set_mode(mode)
+        self._host = self.client.is_host
+        self.pstate = _move_state(self.pstate, self._pstate_home)
+        self._metrics.mode_host.set(1.0 if self._host else 0.0)
+        return True
+
+    def _apply_hot_size(self, new_h: int) -> None:
+        """Swap the SHVS hot set to ``new_h`` ids. An in-flight ticket's
+        workers read the pool's plane when they run: join them BEFORE the
+        swap so their batch samples against the hot set it was dispatched
+        under (as an enqueued device step does) — never a wall-clock
+        race."""
+        self._resolve_host_pending()
+        from repro_torch.core.hot_vocab import build_hot_set
+        self.decision.hot_set = build_hot_set(
+            self._hot_counts, new_h, self.cfg.vocab_size, device=self.device)
+        self.client.refresh()
 
     def _queue_delay_ms(self) -> float:
         """Oldest waiting request's queueing delay; NaN when arrivals carry
@@ -656,26 +868,46 @@ class Engine:
         return max(ds) * 1e3 if ds else float("nan")
 
     # -- admission ------------------------------------------------------------
+    def _trace_queue_wait(self, requests: List[Request], t: float) -> None:
+        """Arrival -> admission wait per request (requests with no arrival
+        stamp are skipped)."""
+        if self.tracer.enabled:
+            for r in requests:
+                if r.arrival_time:
+                    self.tracer.add("queue_wait", r.arrival_time, t,
+                                    name=f"wait#{r.request_id}",
+                                    request_id=int(r.request_id))
+
     def _admit(self, new_requests: List[Request]) -> None:
         """Prefill new requests (padded batch) and insert their rows into
         the batch state at their slots (in place, behind any decode still
         running on the stream). A resumed request (re-queued by preemption
         with committed output) re-prefills prompt + output and samples its
         next token at output position len(output): the (request, position)
-        RNG keying continues its stream."""
+        RNG keying continues its stream. The draw runs on the device in
+        either placement; in host mode the rows' histograms then cross to
+        the host (this admission waits for the prefill anyway)."""
+        t_pf = time.perf_counter()
+        self._trace_queue_wait(new_requests, t_pf)
         first, rows_cache, rows_pstate, lens, bases, rids = \
             prefill_new_rows(self, new_requests, self.scheduler.step)
-        slots = to_device(np.array([r.slot for r in new_requests], np.int64),
-                          self.device)
+        slot_ids = np.array([r.slot for r in new_requests], np.int64)
+        slots = to_device(slot_ids, self.device)
         if self._paged:
             self._paged_insert(new_requests, rows_cache, lens)
         else:
             _insert_rows(self.cache, rows_cache, slots)
-        self.pstate.prompt_counts[slots] = rows_pstate.prompt_counts
-        self.pstate.output_counts[slots] = rows_pstate.output_counts
+        home = self._pstate_home
+        hslots = to_device(slot_ids, home)
+        for dst, src in zip(self.pstate, rows_pstate):
+            dst[hslots] = src.to(home)
         self.last_tokens = self.last_tokens.index_put((slots,), first)
         now = time.perf_counter()
         first_np = first.cpu().numpy()   # blocks on the prefill
+        if self.tracer.enabled:
+            self.tracer.add("prefill", t_pf, time.perf_counter(),
+                            name=f"prefill x{len(new_requests)}",
+                            rows=len(new_requests))
         for i, r in enumerate(new_requests):
             self._sp.set_row(r.slot, r.sampling)
             self._nonce[r.slot] = rids[i]
@@ -708,7 +940,9 @@ class Engine:
     def _admit_chunked(self, new_chunked: List[Request]) -> None:
         """Claim slots for chunked-prefill requests: reset the rows' cache
         offsets and seed their penalty state with the full-prompt histogram
-        (available up front — Eq. 5 is position-independent)."""
+        (available up front — Eq. 5 is position-independent), where the
+        histograms live."""
+        self._trace_queue_wait(new_chunked, time.perf_counter())
         P = len(new_chunked)
         windows = [r.prompt[r.prompt_offset:] for r in new_chunked]
         maxlen = max(len(w) for w in windows)
@@ -717,15 +951,15 @@ class Engine:
         for i, w in enumerate(windows):
             toks[i, :len(w)] = w
             lens[i] = len(w)
-        d = self.device
+        home = self._pstate_home
         rows_pstate = pen.init_state(P, self.cfg.vocab_size,
-                                     to_device(toks, d), to_device(lens, d),
-                                     device=d)
-        slots = to_device(np.array([r.slot for r in new_chunked], np.int64),
-                          d)
-        self.pstate.prompt_counts[slots] = rows_pstate.prompt_counts
-        self.pstate.output_counts[slots] = rows_pstate.output_counts
-        self.cache["len"][slots] = 0
+                                     to_device(toks, home),
+                                     to_device(lens, home), device=home)
+        slot_ids = np.array([r.slot for r in new_chunked], np.int64)
+        hslots = to_device(slot_ids, home)
+        for dst, src in zip(self.pstate, rows_pstate):
+            dst[hslots] = src
+        self.cache["len"][to_device(slot_ids, self.device)] = 0
         for r in new_chunked:
             self._sp.set_row(r.slot, r.sampling)
             self._nonce[r.slot] = np.uint32(r.request_id)
@@ -771,11 +1005,29 @@ class Engine:
                 finish[task.slot] = True
                 finishers.append((task.slot, task.request))
         d = self.device
-        first, self.last_tokens, self.cache, self.pstate = self._chunk_impl(
-            self.params, self.cache, self.pstate, to_device(toks, d),
+        pstate = self.pstate
+        if self._host:
+            # the chunk's draw runs on the device over the finishers' rows,
+            # whose histograms live on the host in this mode: those rows
+            # cross to the device, and back after the draw (which waits for
+            # the chunk program; the other rows' results are discarded)
+            fin = np.array([slot for slot, _ in finishers], np.int64)
+            hfin, dfin = torch.from_numpy(fin), to_device(fin, d)
+            pstate = pen.PenaltyState(*(
+                torch.zeros(t.shape, dtype=t.dtype, device=d)
+                for t in self.pstate))
+            for dst, src in zip(pstate, self.pstate):
+                dst[dfin] = src[hfin].to(d, non_blocking=True)
+        first, self.last_tokens, self.cache, pstate = self._chunk_impl(
+            self.params, self.cache, pstate, to_device(toks, d),
             to_device(counts, d), to_device(mask, d), to_device(finish, d),
             self._sp.as_params(), self._sp.bias_array(), self._nonce.copy(),
             self.last_tokens, self.scheduler.step)
+        if self._host:
+            for dst, src in zip(self.pstate, pstate):
+                dst[hfin] = src[dfin].cpu()
+        else:
+            self.pstate = pstate
         if self._paged:
             for task in chunks:
                 self._slot_len[task.slot] += task.end - task.start
@@ -784,7 +1036,7 @@ class Engine:
         if finishers:
             # first tokens reach the host through the pending queue, by the
             # same pinned copy and event as a decode step's
-            self._pending.append(_Pending(fetch=_HostCopy(first), kind="first",
+            self._pending.append(_Pending(fetch=HostCopy(first), kind="first",
                                           finishers=finishers))
 
 
@@ -825,6 +1077,10 @@ class SlotParams:
         self._bias_dense: Optional[np.ndarray] = None
         self._cached: Optional[SamplingParams] = None
         self._bias_cached: Optional[torch.Tensor] = None
+        # CPU copies of the rows for the host sampler pool (a snapshot its
+        # workers read while the engine moves on)
+        self._host_cached: Optional[SamplingParams] = None
+        self._host_bias: Optional[torch.Tensor] = None
 
     def set_row(self, i: int, cfg: SamplingConfig) -> None:
         self.temperature[i] = cfg.effective_temperature
@@ -845,27 +1101,37 @@ class SlotParams:
                 if 0 <= t < self.vocab_size:
                     self._bias_dense[i, t] += b
             self._bias_cached = None
+            self._host_bias = None
         self._cached = None
+        self._host_cached = None
 
     def reset_row(self, i: int) -> None:
         """Return row ``i`` to the default contract when its slot frees."""
         self.set_row(i, SamplingConfig())
 
+    def _params_on(self, d: torch.device) -> SamplingParams:
+        return SamplingParams(
+            temperature=to_device(self.temperature, d),
+            top_k=to_device(self.top_k, d),
+            top_p=to_device(self.top_p, d),
+            min_p=to_device(self.min_p, d),
+            repetition_penalty=to_device(self.repetition, d),
+            presence_penalty=to_device(self.presence, d),
+            frequency_penalty=to_device(self.frequency, d),
+            seed=self.seed.copy(),
+            use_seed=self.use_seed.copy(),
+        )
+
     def as_params(self) -> SamplingParams:
         if self._cached is None:
-            d = self.device
-            self._cached = SamplingParams(
-                temperature=to_device(self.temperature, d),
-                top_k=to_device(self.top_k, d),
-                top_p=to_device(self.top_p, d),
-                min_p=to_device(self.min_p, d),
-                repetition_penalty=to_device(self.repetition, d),
-                presence_penalty=to_device(self.presence, d),
-                frequency_penalty=to_device(self.frequency, d),
-                seed=self.seed.copy(),
-                use_seed=self.use_seed.copy(),
-            )
+            self._cached = self._params_on(self.device)
         return self._cached
+
+    def host_params(self) -> SamplingParams:
+        """The rows as CPU tensors, for the host sampler pool."""
+        if self._host_cached is None:
+            self._host_cached = self._params_on(torch.device("cpu"))
+        return self._host_cached
 
     def bias_array(self) -> Optional[torch.Tensor]:
         """Dense (B, V) logit-bias operand, or None while no request has
@@ -875,3 +1141,11 @@ class SlotParams:
         if self._bias_cached is None:
             self._bias_cached = to_device(self._bias_dense, self.device)
         return self._bias_cached
+
+    def host_bias(self) -> Optional[torch.Tensor]:
+        """:meth:`bias_array` as a CPU tensor, for the host sampler pool."""
+        if self._bias_dense is None:
+            return None
+        if self._host_bias is None:
+            self._host_bias = to_device(self._bias_dense, torch.device("cpu"))
+        return self._host_bias

@@ -5,16 +5,21 @@
         --reduced --device cpu --requests 4 --max-new 6
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --algorithm gumbel --cache paged --prompt-chunk 8 --long-prompts
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+        --sampler-mode host --samplers 2 --trace-out trace.json
 
 The driver streams tokens through ``Engine.generate()`` (events fire as
 tokens commit) and prints a batch report: throughput, TTFT/TPOT
-percentiles, and each request's ``finish_reason``. Weights are a seeded
-random init in the model's dtype, made on the device. ``--device``
-defaults to ``cuda`` and fails without a card.
+percentiles, and each request's ``finish_reason``; with the host sampler
+pool (``--sampler-mode host`` or ``adaptive``) also the pool's commit
+stall, CPU sampling and transfer time per step, and the adaptive
+controller's decisions. ``--trace-out`` writes the flight recorder's
+Chrome trace. Weights are a seeded random init in the model's dtype, made
+on the device. ``--device`` defaults to ``cuda`` and fails without a card.
 
 Flags of the reference driver that the port does not serve yet (pipeline
-stages, host sampling, gateway, disaggregation, tracing) raise
-``NotImplementedError`` naming their ROADMAP item.
+stages, gateway, disaggregation) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -30,13 +35,15 @@ from repro_torch.device import resolve_device
 from repro_torch.engine.engine import Engine, EngineConfig
 from repro_torch.engine.request import Request
 from repro_torch.models.model import Model
+from repro_torch.obs import StepTracer, Telemetry, write_chrome_trace
 
 
 def build_engine(arch: str, reduced: bool, algorithm: str, batch: int,
                  max_seq: int, seed: int = 0, overlap: bool = True,
                  prompt_chunk: int = 0, cache: str = "contiguous",
-                 block_size: int = 16, num_blocks: int = 0,
-                 device="cuda") -> Engine:
+                 block_size: int = 16, num_blocks: int = 0, samplers: int = 2,
+                 sampler_mode: str = "device", pool_algorithm: str = None,
+                 telemetry: Telemetry = None, device="cuda") -> Engine:
     """An engine over a seeded random init of ``arch`` on ``device``."""
     dev = resolve_device(device)
     cfg = get_arch(arch)
@@ -50,8 +57,27 @@ def build_engine(arch: str, reduced: bool, algorithm: str, batch: int,
                         k_cap=min(256, cfg.vocab_size), seed=seed,
                         overlap=overlap, prompt_chunk=prompt_chunk,
                         cache=cache, block_size=block_size,
-                        num_blocks=num_blocks)
-    return Engine(cfg, params, ecfg, device=dev)
+                        num_blocks=num_blocks, sampler_mode=sampler_mode,
+                        samplers=samplers, pool_algorithm=pool_algorithm)
+    return Engine(cfg, params, ecfg, device=dev, telemetry=telemetry)
+
+
+def trace_telemetry(trace_out: str) -> Telemetry:
+    """A telemetry bundle with the flight recorder on — only built when
+    ``--trace-out`` asks for a trace, so default runs pay nothing."""
+    return Telemetry(tracer=StepTracer(capacity=65536, enabled=True)) \
+        if trace_out else None
+
+
+def host_pool_report(eng: Engine) -> dict:
+    """Means per committed host-mode step of the pool's decomposition:
+    the engine's block on the ticket (commit stall), the workers' CPU
+    sampling and their wait for the logits (ms; NaN with no host step)."""
+    mean = lambda k: float(np.mean([s[k] for s in eng.stats_log if k in s])) \
+        if any(k in s for s in eng.stats_log) else float("nan")
+    return {"host_steps": sum(1 for s in eng.stats_log if "stall_ms" in s),
+            "stall_ms": mean("stall_ms"), "sampler_ms": mean("sampler_ms"),
+            "transfer_ms": mean("transfer_ms")}
 
 
 def synth_requests(n: int, vocab: int, max_new: int, rng_seed: int = 0,
@@ -109,9 +135,7 @@ def serve_batch(eng: Engine, reqs):
 
 
 _UNPORTED = {
-    "sampler_mode": ("--sampler-mode", 8), "samplers": ("--samplers", 8),
-    "pool_algorithm": ("--pool-algorithm", 8), "gateway": ("--gateway", 9),
-    "disaggregate": ("--disaggregate", 9), "trace_out": ("--trace-out", 9),
+    "gateway": ("--gateway", 9), "disaggregate": ("--disaggregate", 9),
     "stages": ("--stages", 10), "microbatches": ("--microbatches", 10),
 }
 
@@ -151,13 +175,29 @@ def main(argv=None) -> None:
                     help="tokens per KV block (paged cache)")
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="paged pool size; 0 = memory-equal to contiguous")
+    ap.add_argument("--sampler-mode", default="device",
+                    choices=("device", "host", "disaggregated", "baseline",
+                             "adaptive"),
+                    help="decision-plane placement: 'device' samples on the "
+                         "card, 'host' in the CPU sampler pool, committed "
+                         "one step behind; 'adaptive' lets the controller "
+                         "switch placement and resize the pool online. "
+                         "'disaggregated'/'baseline' are the historic "
+                         "spellings of host/device")
+    ap.add_argument("--samplers", type=int, default=2,
+                    help="host sampler pool workers")
+    ap.add_argument("--pool-algorithm", default=None,
+                    choices=registered_backends(),
+                    help="pool-level backend override: host-mode workers "
+                         "draw with this backend while the engine keeps "
+                         "--algorithm")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable the flight recorder and write a Chrome "
+                         "trace-event JSON (chrome://tracing, "
+                         "ui.perfetto.dev) to PATH at exit")
     # the reference driver's flags the port does not serve: refused
-    ap.add_argument("--sampler-mode", default=None)
-    ap.add_argument("--samplers", type=int, default=None)
-    ap.add_argument("--pool-algorithm", default=None)
     ap.add_argument("--gateway", action="store_true", default=None)
     ap.add_argument("--disaggregate", action="store_true", default=None)
-    ap.add_argument("--trace-out", default=None)
     ap.add_argument("--stages", type=int, default=None)
     ap.add_argument("--microbatches", type=int, default=None)
     args = ap.parse_args(argv)
@@ -174,6 +214,9 @@ def main(argv=None) -> None:
                        args.max_seq, overlap=args.overlap,
                        prompt_chunk=args.prompt_chunk, cache=args.cache,
                        block_size=args.block_size, num_blocks=args.num_blocks,
+                       samplers=args.samplers, sampler_mode=args.sampler_mode,
+                       pool_algorithm=args.pool_algorithm,
+                       telemetry=trace_telemetry(args.trace_out),
                        device=args.device)
     reqs = synth_requests(args.requests, eng.cfg.vocab_size, args.max_new,
                           long_prompts=args.long_prompts, seed=args.seed,
@@ -183,6 +226,10 @@ def main(argv=None) -> None:
     where = torch.cuda.get_device_name(eng.device) \
         if eng.device.type == "cuda" else "cpu"
     mode = "overlapped" if args.overlap else "sequential"
+    mode += f", {eng.client.mode} sampling"
+    host_pool = args.sampler_mode not in ("device", "baseline")
+    if host_pool:
+        mode += f" ({args.sampler_mode}, samplers={eng.client.pool.num_workers})"
     if args.prompt_chunk:
         mode += f", prompt_chunk={args.prompt_chunk}"
     if args.cache == "paged":
@@ -200,11 +247,28 @@ def main(argv=None) -> None:
         seed_s = "-" if r.sampling.seed is None else str(r.sampling.seed)
         print(f"  req {r.request_id:3d}: {len(r.output):3d} tokens, "
               f"seed={seed_s:>4s}, finish_reason={r.finish_reason}")
+    if host_pool:
+        pool = host_pool_report(eng)
+        fmt = lambda v: "n/a" if np.isnan(v) else f"{v:.2f}ms"
+        print(f"host sampler pool: commit_stall={fmt(pool['stall_ms'])} "
+              f"sampler={fmt(pool['sampler_ms'])} "
+              f"(+{fmt(pool['transfer_ms'])} transfer) per step over "
+              f"{pool['host_steps']} host steps")
+    if eng._dpc is not None:
+        print(f"adaptive controller: {len(eng._dpc.history)} decisions, "
+              f"final placement {eng.client.mode}, "
+              f"{eng.client.pool.num_workers} workers")
+        for h in eng._dpc.history:
+            print(f"  step {h['step']}: {h['action']}")
     accs = [s.accept_rate for s in eng.stats_log
             if np.isfinite(s.accept_rate)]
     if accs:
         print(f"decision plane: mean fast-path acceptance "
               f"{np.mean(accs):.2%} ({len(eng.stats_log)} iterations)")
+    if args.trace_out:
+        n = write_chrome_trace(args.trace_out, [("engine", eng.tracer)])
+        print(f"wrote {n} trace events to {args.trace_out} "
+              f"(chrome://tracing / ui.perfetto.dev)")
 
 
 if __name__ == "__main__":

@@ -92,13 +92,13 @@ def test_generate_streams_match_reference(weights, reference_streams,
     assert len(eng.stats_log) > 0 and eng.in_flight == 0
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("sampler_mode", "host", "item 8"), ("sampler_mode", "adaptive", "item 8")])
-def test_unported_engine_modes_raise(weights, field, value, item):
+@pytest.mark.parametrize("method,item", [
+    ("export_request", "item 9"), ("import_request", "item 9")])
+def test_unported_engine_modes_raise(weights, method, item):
     _, _, tp = weights
+    eng = TEngine(tget(ARCH).reduced(), tp, TECfg(), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        TEngine(tget(ARCH).reduced(), tp, TECfg(**{field: value}),
-                device="cpu")
+        getattr(eng, method)(0)
 
 
 def test_serve_driver_runs_on_cpu():

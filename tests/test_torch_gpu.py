@@ -12,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.config import SHVSConfig, get_arch
-from repro_torch.engine.engine import Engine, EngineConfig
+from repro_torch.config import SamplingConfig, SHVSConfig, get_arch
+from repro_torch.core import penalties as pen
+from repro_torch.core.decision_plane import DecisionPlane
+from repro_torch.core.host_sampler import HostSamplerPool
+from repro_torch.engine.engine import Engine, EngineConfig, SlotParams
 from repro_torch.kernels import (fused_kernel, gumbel_kernel, penalty_kernel,
                                  ref, shvs_kernel)
 from repro_torch.launch.serve import synth_requests
@@ -277,3 +280,95 @@ def test_paged_chunked_gumbel_engine_on_cuda_matches_cpu(overlap):
         assert eng.scheduler.preemptions > 0
         streams.append([(r.output, r.finish_reason) for r in reqs])
     assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_host_mode_engine_on_cuda_matches_cpu(overlap):
+    """Host placement on the card (the logits' pinned copy and event, the
+    histogram rows crossing at admission and around chunk draws) over the
+    paged cache with chunked prefill and preemption: the same streams as
+    host placement on the CPU."""
+    dev = _cuda()
+    cfg = get_arch("smollm-360m").reduced()
+    params = Model(cfg).init(seed=1, device="cpu")
+    to = lambda t: {k: to(v) if isinstance(v, dict) else v.to(dev)
+                    for k, v in t.items()}
+    streams = []
+    for device, p in (("cpu", params), (dev, to(params))):
+        eng = Engine(cfg, p, EngineConfig(
+            max_batch=4, max_seq_len=256, algorithm="shvs",
+            shvs=SHVSConfig(hot_size=128), k_cap=64, cache="paged",
+            block_size=16, num_blocks=16, prompt_chunk=32, overlap=overlap,
+            sampler_mode="host", samplers=2), device=device)
+        reqs = synth_requests(8, cfg.vocab_size, 24, long_prompts=True,
+                              seed=5)
+        list(eng.generate(reqs))
+        eng.close()
+        assert eng.scheduler.preemptions > 0
+        assert eng.pstate.prompt_counts.device.type == "cpu"
+        streams.append([(r.output, r.finish_reason) for r in reqs])
+    assert streams[0] == streams[1]
+
+
+def _pool_inputs(B, V, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn((B, V), generator=gen, device=dev) * 1.5
+    sp = SlotParams(B, V, "cpu")
+    for b in range(B):
+        sp.set_row(b, SamplingConfig(
+            temperature=(0.0, 0.8, 1.0, 0.7)[b % 4],
+            top_k=(0, 40, 0, 1)[b % 4], top_p=(1.0, 0.95, 0.9, 1.0)[b % 4],
+            repetition_penalty=1.1, seed=b if b % 3 else None))
+    z = torch.zeros((B, V), dtype=torch.int32)
+    state = pen.PenaltyState(z, z.clone())
+    return (logits, state, sp.host_params(), None,
+            np.arange(B, dtype=np.uint32), np.full(B, 3, np.int32), 7,
+            np.ones(B, bool))
+
+
+def test_host_pool_transfer_excludes_later_kernels():
+    """The copy and its event are enqueued at submit: a long kernel
+    enqueued after it is not in ``transfer_time``; one enqueued before it
+    is."""
+    dev = _cuda()
+    V = 49152
+    plane = DecisionPlane(V, algorithm="shvs", shvs=SHVSConfig(hot_size=1024),
+                          k_cap=256, seed=0, device=dev)
+    pool = HostSamplerPool(plane, 2)
+    sleep_s = 0.3                # the least a 1e9-cycle sleep lasts (<2 GHz)
+    try:
+        args = _pool_inputs(8, V, dev)
+        pool.submit(*args).result()                  # warm the pool
+        torch.cuda.synchronize()
+        ticket = pool.submit(*args)
+        torch.cuda._sleep(1_000_000_000)            # after the event
+        after = ticket.result()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000_000)            # before the copy
+        before = pool.submit(*args).result()
+    finally:
+        pool.close()
+    assert after.transfer_time < sleep_s / 2, after.transfer_time
+    assert before.transfer_time >= sleep_s, before.transfer_time
+    np.testing.assert_array_equal(after.tokens, before.tokens)
+
+
+def test_host_pool_tokens_equal_across_worker_counts():
+    """B = 64, V = 151936 (qwen3-8b's vocabulary), logits made on the card:
+    1, 2, 4 and 8 workers commit the same tokens and histograms."""
+    dev = _cuda()
+    B, V = 64, 151936
+    plane = DecisionPlane(V, algorithm="shvs", shvs=SHVSConfig(hot_size=1024),
+                          k_cap=256, seed=0, device=dev)
+    args = _pool_inputs(B, V, dev, seed=11)
+    out = []
+    for workers in (1, 2, 4, 8):
+        pool = HostSamplerPool(plane, workers)
+        try:
+            out.append(pool.submit(*args).result())
+        finally:
+            pool.close()
+    for res in out[1:]:
+        np.testing.assert_array_equal(res.tokens, out[0].tokens)
+        assert torch.equal(res.state.output_counts, out[0].state.output_counts)
+    assert out[0].active_rows == B
