@@ -25,7 +25,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    hazards (``check_split``, ``check_gumbel_split``), and
    ``gumbel_argmax``'s noise to ``-logf(-logf(u))`` bit for bit at all
    2^32 hash values; its issue floor (SASS instructions a column over the
-   schedulers' rate at the SM clock) is printed beside its time;
+   schedulers' rate at the SM clock) is printed beside its time.
+   ``fused_sample`` past its old K <= 1024 cap: K = 2048, 16384 and the
+   padded V at B = 8, V = 49152, and the padded V at B = 8, V = 151936, on
+   the path the kernel picks and forced onto its global-workspace path,
+   both equal to each other and to the plain version, each timed;
 3. hold the port's CUDA forward against its CPU forward on a small f32
    model (the CPU forward is what the tests hold against the reference);
 4. serve 8 seeded requests of 16 new tokens at the full width of
@@ -66,12 +70,29 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    make no synchronising call; then the pool alone, on logits made on the
    card from a seed, at B = 8, V = 49152 and B = 64, V = 151936, 20
    submits each at 1, 2, 4 and 8 workers (capped at ``os.cpu_count()``):
-   median transfer and sampler ms, tokens equal across worker counts.
+   median transfer and sampler ms, tokens equal across worker counts;
+7. the pipeline engine at full width through ``build_engine`` (``shvs``,
+   batch 8): (p, M) = (2, 2), (2, 4), (4, 4), (4, 8), each with the
+   decision in the host pool (``disaggregated``, 2 workers) and drawn on
+   the card after the last stage (``baseline``), the paged cache at (2, 4)
+   in both modes, and ``fused`` with k_cap = 2048 in ``baseline``; for
+   each, tok/s, TTFT and TPOT p50, ``pipeline_report()`` (Eq. 4's cycle
+   time C and bubble fraction for p separate cards, from the measured
+   stage times), the wall time of a cycle on this card, and the launches
+   of ``penalty_scale``, ``shvs_masses`` and ``fused_sample`` (one draw an
+   admission, and in ``baseline`` one a commit); greedy streams equal the
+   single-stage engine's up to a first difference where the top-two
+   logit gap is below ``GAP_CLEAR``; then the pool alone at the
+   microbatches' R = 4, 2, 1 rows over 1–8 workers.
 
 ``python3 chip_smoke.py --host-only`` builds the kernels and runs phase 5's
 ``shvs`` rows on the device and in the host pool, in turns, and the pool
 alone at the main shape, printing one JSON line: run it under different
 threading settings, one process each.
+
+``python3 chip_smoke.py --pipeline-only`` builds the kernels and runs phase
+7 alone, printing one JSON line: run it under torch's default threads and
+under ``OMP_NUM_THREADS=1``, one process each.
 
 ``python3 chip_smoke.py --time-only [--src DIR]`` builds and runs phase 2's
 timing alone, of the package under DIR (default ``src``), and prints one
@@ -282,11 +303,80 @@ def check_kernels(dev):
 
     check_split(gen, dev, err)
     check_gumbel_split(gen, dev)
+    large_k = check_fused_large_k(gen, dev, err)
     timing = {"main": time_kernels(B_MAIN, V_MAIN, gen, dev, 1, 1),
               "large": time_kernels(B_LARGE, V_LARGE, gen, dev, 3, 2)}
     bounds = {"main": kernel_bounds(B_MAIN, V_MAIN),
               "large": kernel_bounds(B_LARGE, V_LARGE)}
-    return err, timing, bounds
+    return err, timing, bounds, large_k
+
+
+def check_fused_large_k(gen, dev, err):
+    """Phase 2, ``fused_sample`` past its old K <= 1024 cap: at B = 8, V =
+    49152 with K = 2048, 16384 and the padded V, and at B = 8, V = 151936
+    with K = the padded V, the kernel on the path it picks (shared memory
+    up to K = 16384 here, the global workspace beyond) and forced onto the
+    global path: both equal each other bit for bit and the plain version
+    in tokens and alpha (rtol 1e-5); kept and exact where the kept mass
+    stays clear of 1.0 (ROADMAP 'Faults' 1: every row while K < padded V,
+    rows with an explicit top_k at K = padded V). Each is timed in turns
+    with the plain version, warm in L2 (ms on the device)."""
+    import torch
+    from repro_torch.kernels import fused_kernel, ref
+    out = []
+    for B, V, k_cap in ((B_MAIN, V_MAIN, 2048), (B_MAIN, V_MAIN, 16384),
+                        (B_MAIN, V_MAIN, None), (B_MAIN, V_LARGE, None)):
+        Vp = -(-V // BLOCK_V) * BLOCK_V
+        K = Vp if k_cap is None else k_cap
+        x = make_inputs(B, V, gen, dev, tau_zero=(3,))
+        hot = hot_mask(V, "first", dev)
+        args = (x["z"], x["cp"], x["co"], x["rep"], x["pres"], x["freq"],
+                x["temp"], x["top_k"], x["top_p"], x["min_p"], x["u"], hot)
+        want = ref.fused_sample_ref(*args, k_cap=K, block_v=BLOCK_V)
+        clear = x["top_k"] > 0 if K == Vp else \
+            torch.ones(B, dtype=torch.bool, device=dev)
+        rec = {"B": B, "V": V, "K": K}
+        for path in (None, "global"):
+            split = fused_kernel.split(B, Vp, K, path)
+            got = fused_kernel.fused_sample(*args, k_cap=K, block_v=BLOCK_V,
+                                            path=path)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), (
+                f"fused_sample tokens differ at B={B} V={V} K={K} "
+                f"({split['path']}): {got[0].tolist()} vs {want[0].tolist()}")
+            torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+            for name, i in (("exact", 1), ("kept", 3)):
+                assert torch.equal(got[i][clear], want[i][clear]), (
+                    f"fused_sample {name} differ at B={B} V={V} K={K} "
+                    f"({split['path']})")
+            if path is None:
+                auto = got
+            else:
+                assert all(torch.equal(a, g) for a, g in zip(auto, got)), \
+                    f"the two paths differ at B={B} V={V} K={K}"
+            err["fused_sample"] = max(err["fused_sample"],
+                                      (got[2] - want[2]).abs().max().item())
+            k_ms, p_ms, launch_ms, _ = time_in_turns(
+                f"fused_sample K={K}",
+                lambda: fused_kernel.fused_sample(*args, k_cap=K,
+                                                  block_v=BLOCK_V, path=path),
+                lambda: ref.fused_sample_ref(*args, k_cap=K, block_v=BLOCK_V),
+                n_kernel=10, n_plain=1, rounds=3)
+            rec[split["path"] if path is None else "forced_global"] = {
+                "split": split, "ms": k_ms, "launch_ms": launch_ms}
+            rec["plain_ms"] = p_ms
+        rec["bound_ms"] = kernel_bounds(B, V)["fused_sample"][0]
+        out.append(rec)
+        picked = "shared" if "shared" in rec else "global"
+        print(f"kernel check fused_sample B={B} V={V} K={K}: {picked} path "
+              f"(L {rec[picked]['split']['L']}, smem "
+              f"{rec[picked]['split']['smem_bytes']} B) "
+              f"{rec[picked]['ms']:.4f} ms, forced global path "
+              f"{rec['forced_global']['ms']:.4f} ms (workspace "
+              f"{rec['forced_global']['split']['workspace_keys'] * 8} B), "
+              f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} "
+              f"ms; both paths equal the plain version: ok")
+    return out
 
 
 def check_split(gen, dev, err):
@@ -556,7 +646,7 @@ def engine(algorithm, dev, **kw):
     assert cfg.num_layers == 32 and cfg.d_model == 960 and \
         cfg.vocab_size == V_MAIN and cfg.dtype == "bfloat16"
     assert eng.ecfg.shvs.resolve_hot_size(V_MAIN) == H_MAIN and \
-        eng.decision.k_cap == K_CAP
+        eng.decision.k_cap == kw.get("k_cap", K_CAP)
     return eng
 
 
@@ -1063,6 +1153,141 @@ def pool_alone(dev, card, n=20,
     return out
 
 
+def pipeline_run(eng, reqs):
+    """Serve ``reqs`` through a pipeline engine with the launch counters
+    set to 0 just before and read just after; returns the serve report
+    with the pipeline's numbers: ``pipeline_report()`` (Eq. 4's quantities
+    for p separate cards), the run's cycles, the wall time of a cycle on
+    this card (the run's seconds over its cycles) and the mean over full
+    cycles of the stages' busy time plus the stall, the commits and the
+    admissions of the run."""
+    import statistics
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch
+    admits = [0]
+    admit = eng._admit_group
+
+    def counted(i, reqs, admit=admit):
+        admits[0] += 1
+        return admit(i, reqs)
+
+    eng._admit_group = counted
+    eng.cycle_log.clear()
+    c0, n0 = eng.planner.cycle, len(eng.stats_log)
+    ops.reset_launch_counts()
+    rep = serve_batch(eng, reqs)
+    counts = ops.launch_counts()
+    del eng._admit_group
+    cycles = eng.planner.cycle - c0
+    full = [r for r in eng.cycle_log if r.full]
+    rep.update(pipeline=eng.pipeline_report(), cycles=cycles,
+               wall_cycle_ms=rep["seconds"] / cycles * 1e3,
+               busy_plus_stall_ms=statistics.mean(
+                   sum(r.busy) + r.stall for r in full) * 1e3,
+               commits=len(eng.stats_log) - n0, admissions=admits[0],
+               launches={k: counts[k] for k in
+                         ("penalty_scale", "shvs_masses", "fused_sample")})
+    return rep
+
+
+PIPELINE_SHAPES = ((2, 2), (2, 4), (4, 4), (4, 8))
+# a first difference of two greedy streams is allowed only where the top
+# two logits lie within this of each other: bf16 GEMMs at R rows and at B
+# rows may round differently (a few bf16 steps at logits of a few units)
+GAP_CLEAR = 0.25
+
+
+def serve_pipeline(dev, card):
+    """Phase 7: the pipeline engine at full width through ``build_engine``
+    (smollm-360m, bf16, batch 8, ``shvs``, contiguous): (p, M) in
+    ``PIPELINE_SHAPES``, each with the decision in the host pool
+    (``disaggregated``, 2 workers) and drawn synchronously on the card
+    after the last stage (``baseline``); the paged cache at (2, 4) in both
+    modes; and ``fused`` with k_cap = 2048 in ``baseline`` at (2, 4).
+    Each engine serves 8 seeded requests of 16 new tokens (measured),
+    then the same prompts greedy, which must equal the single-stage
+    engine's greedy streams up to a first difference at a top-two gap
+    below ``GAP_CLEAR``. Launches: every admission's prefill draw, and in
+    ``baseline`` every commit's draw, launch the run's kernels."""
+    from repro_torch.launch.serve import serve_batch, synth_requests
+    V = V_MAIN
+    eng = engine("shvs", dev)
+    single = synth_requests(8, V, 16, greedy=True)
+    serve_batch(eng, single)
+    eng.close()
+    configs = [(p, M, mode, "contiguous", "shvs", K_CAP)
+               for p, M in PIPELINE_SHAPES
+               for mode in ("baseline", "disaggregated")]
+    configs += [(2, 4, mode, "paged", "shvs", K_CAP)
+                for mode in ("baseline", "disaggregated")]
+    configs += [(2, 4, "baseline", "contiguous", "fused", 2048)]
+    out = {}
+    for p, M, mode, cache, algorithm, k_cap in configs:
+        name = f"{algorithm}_p{p}_M{M}_{mode}_{cache}"
+        eng = engine(algorithm, dev, stages=p, microbatches=M,
+                     sampler_mode=mode, samplers=2, cache=cache, k_cap=k_cap)
+        serve_batch(eng, synth_requests(2, V, 2, rng_seed=99, seed=0))  # warm
+        reqs = synth_requests(8, V, 16, seed=0)
+        rep = pipeline_run(eng, reqs)
+        for r in reqs:
+            assert r.finish_reason == "length" and len(r.output) == 16, \
+                (name, r.request_id, r.finish_reason, len(r.output))
+            assert all(0 <= t < V for t in r.output)
+        greedy = synth_requests(8, V, 16, greedy=True)
+        serve_batch(eng, greedy)
+        eng.close()
+        cmp = agreement(eng, greedy, single, dev)
+        first = cmp["first_difference"]
+        assert first is None or first["top2_gap"] < GAP_CLEAR, (name, cmp)
+        rep["greedy_vs_single_stage"] = cmp
+        # kernel launches: one draw an admission, plus one a commit in
+        # baseline; the fused run launches fused_sample only
+        want = rep["admissions"] + (rep["commits"] if mode == "baseline"
+                                    else 0)
+        got = rep["launches"]
+        if algorithm == "fused":
+            assert got["fused_sample"] == want > 0, (name, got, want)
+        else:
+            assert got["penalty_scale"] == got["shvs_masses"] == want > 0, \
+                (name, got, want)
+        out[name] = rep
+        pr = rep["pipeline"]
+        print(f"pipeline {name}: {rep['tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{rep['ttft_p50_ms']:.2f} ms, TPOT p50 "
+              f"{rep['tpot_p50_ms']:.2f} ms; {rep['cycles']} cycles, wall "
+              f"{rep['wall_cycle_ms']:.2f} ms a cycle on this card (busy + "
+              f"stall {rep['busy_plus_stall_ms']:.2f} ms a full cycle) vs "
+              f"Eq. 4's C = mean_cycle_ms {pr['mean_cycle_ms']:.2f} ms on "
+              f"{p} cards; bubble_frac {pr['bubble_frac']:.4f}, stage_util "
+              f"{[round(u, 4) for u in pr['stage_util']]}, stall "
+              f"{pr['stall_ms_mean']:.3f} ms, sync sample "
+              f"{pr['sample_ms_mean']:.3f} ms, sampler "
+              f"{pr['sampler_ms_mean']:.3f} ms, transfer "
+              f"{pr['transfer_ms_mean']:.3f} ms over {pr['cycles']} full "
+              f"cycles; launches {got} ({rep['admissions']} admissions, "
+              f"{rep['commits']} commits); greedy vs single-stage agreement "
+              f"{cmp['agreement']:.4f}, first difference {first} [{card}]")
+    # the pool alone at the microbatches' R rows: its CPU time with no
+    # stage dispatching beside it, against its sampler ms above
+    out["pool_alone"] = pool_alone(
+        dev, card, shapes=tuple((B_MAIN // M, V) for M in (2, 4, 8)))
+    return out
+
+
+def pipeline_only(dev, card):
+    """``--pipeline-only``: phase 7 alone; prints one JSON line. Run it
+    under different threading settings (``OMP_NUM_THREADS``), one process
+    each."""
+    import os
+    import torch
+    runs = serve_pipeline(dev, card)
+    print(json.dumps({"pipeline_only": {
+        "card": card, "env": {"OMP_NUM_THREADS":
+                              os.environ.get("OMP_NUM_THREADS")},
+        "torch_threads": torch.get_num_threads(), "runs": runs}}))
+    return 0
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1261,6 +1486,9 @@ def main() -> int:
                     help="build the kernels and profile the shvs decode "
                          "step on the device and in the host pool, in "
                          "turns, then the pool alone; prints one JSON line")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="build the kernels and run phase 7 (the pipeline "
+                         "engine) only; prints one JSON line")
     ap.add_argument("--src", default=None,
                     help="with --time-only: time the repro_torch package "
                          "under this directory instead of ./src")
@@ -1310,6 +1538,8 @@ def main() -> int:
         return time_only(dev, card, args.src)
     if args.host_only:
         return host_only(dev, card)
+    if args.pipeline_only:
+        return pipeline_only(dev, card)
 
     t_phase = time.perf_counter()
 
@@ -1319,7 +1549,7 @@ def main() -> int:
         print(f"phase {n} took {now - t_phase:.1f} s")
         t_phase = now
 
-    err, timing, bounds = check_kernels(dev)
+    err, timing, bounds, large_k = check_kernels(dev)
     phase_done(2)
     model_err = check_model(dev)
     phase_done(3)
@@ -1331,6 +1561,8 @@ def main() -> int:
     phase_done(5)
     host_runs = serve_host(dev, card)
     phase_done(6)
+    pipeline_runs = serve_pipeline(dev, card)
+    phase_done(7)
 
     launch_of = {"penalty_scale": counts["shvs"]["penalty_scale"],
                  "shvs_masses": counts["shvs"]["shvs_masses"],
@@ -1354,6 +1586,7 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__, "kernels": kernels,
               "model_check_max_abs_err": model_err, "runs": runs,
               "step_profile": steps, "host_placement": host_runs,
+              "pipeline": pipeline_runs, "fused_large_k": large_k,
               "gumbel_sass": sass,
               "gumbel_issue_floor": floor}
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))

@@ -12,7 +12,7 @@ from the backend registry. The shell owns what is common to all backends:
 — while the logits→token draw itself is the backend. On one device the
 sequence-parallel re-shard (S1) is the identity, so the port has no
 ``sampling_parallelism`` setting (the reference's ``hierarchical`` mode is
-ROADMAP item 11).
+ROADMAP item 5).
 
 For backends that do not fuse penalties, the penalty pass is
 ``ops.fused_penalty_scale`` with τ = 1: the ``penalty_scale`` kernel on a

@@ -49,21 +49,8 @@ from repro_torch.core.decision_plane import DecisionPlane
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.core.shvs import HotSet
 from repro_torch.device import HostCopy
+from repro_torch.models.transformer import stage_bounds
 from repro_torch.obs.tracer import NULL_TRACER, StepTracer
-
-
-def stage_bounds(n: int, parts: int):
-    """Balanced contiguous split of ``n`` items into ``parts`` ranges
-    [lo, hi); earlier ranges absorb the remainder, so no range is more
-    than one item longer (the reference's pipeline layer split)."""
-    assert 1 <= parts <= n, (parts, n)
-    base, rem = divmod(n, parts)
-    bounds, lo = [], 0
-    for s in range(parts):
-        hi = lo + base + (1 if s < rem else 0)
-        bounds.append((lo, hi))
-        lo = hi
-    return bounds
 
 
 class PoolResult(NamedTuple):

@@ -28,13 +28,16 @@ sums differently elsewhere.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.decision_plane import DecisionPlane
 from repro_torch.core.host_sampler import (HostSamplerPool, PoolResult,
                                            SampleTicket)
+from repro_torch.device import to_device
 from repro_torch.obs.tracer import StepTracer
 
 #: accepted ``sampler_mode`` spellings -> canonical client mode. The
@@ -140,10 +143,29 @@ class DecisionPlaneClient:
 
     def sample_sync(self, logits, state, params, bias, nonces, pos, step,
                     active) -> PoolResult:
-        """Full-width draw through the pool's CPU plane on the calling
-        thread, blocking it on the result."""
-        return self.pool.sample_sync(logits, state, params, bias, nonces,
-                                     pos, step, active)
+        """Full-width draw through the engine's plane, on its device, on
+        the calling thread: the device-mode path for an engine that does
+        not fuse the decision into its forward (the pipeline's last-stage
+        Eq. 4 baseline). ``logits``, ``state``, ``params`` and ``bias``
+        lie on the plane's device, ``nonces``/``pos``/``active`` are host
+        arrays. Blocks until the tokens are on the host; the new state
+        stays on the device. ``sampler_time`` is the whole draw, the
+        device's time included; nothing is transferred but the tokens."""
+        t0 = time.perf_counter()
+        act = to_device(active, self.plane.device)
+        tokens, state, stats = self.plane.step(
+            logits, state, params, step, active=act, rng_tags=(nonces, pos),
+            logit_bias=bias)
+        tokens = torch.where(act, tokens, 0)
+        R = tokens.shape[0]
+        vals = torch.cat([tokens.float(), torch.stack(
+            [s.float() for s in stats])]).cpu().numpy()   # one sync
+        return PoolResult(
+            tokens=vals[:R].astype(np.int32), state=state,
+            accept_rate=float(vals[R]), alpha_mean=float(vals[R + 1]),
+            fallback_rate=float(vals[R + 2]),
+            sampler_time=time.perf_counter() - t0, transfer_time=0.0,
+            active_rows=int(np.count_nonzero(active)))
 
     # -- lifecycle -----------------------------------------------------------
     def refresh(self) -> None:

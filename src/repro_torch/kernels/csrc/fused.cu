@@ -47,16 +47,30 @@
 // min(k_cap, Vp) and the result equal the plain version's for the same
 // block_v. There are no float atomics: two launches give the same bits.
 //
-// Dynamic shared memory a CTA: 4 B a column of its range + 16 KB of
-// histograms (rank 0's epilogue reuses them) + 8 L B for its list, L = K
-// rounded up to a power of two; 30 KB at B = 8, V = 49152, K = 256. K is
-// at most 1024 and a CTA keeps at most 32768 columns, so Vp is at most
-// 16 * 32768.
+// Two paths, chosen at launch (fused_layout):
+//   shared: each CTA's list of L keys, L = K rounded up to a power of two,
+//     lives in shared memory and the merges above keep the top L. Dynamic
+//     shared memory a CTA: 4 B a column of its range + 16 KB of histograms
+//     + 8 L B, at most the card's opt-in limit
+//     (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB on the H100), and a
+//     cluster must fit on the card; 30 KB at B = 8, V = 49152, K = 256, and
+//     L up to 16384 at B = 8, V = 49152 and at B = 64, V = 151936.
+//   global: where the list does not fit, each CTA's sorted list of
+//     L = min(K, chunk) rounded up to a power of two keys goes to a global
+//     workspace of B * C * L keys that the caller owns, and the merges
+//     there keep every key: rank r (a multiple of 2s) bitonic-merges its
+//     run of s L keys with rank r+s's, which follows it, into one sorted
+//     run of 2 s L; rank 0 draws from the row's C L keys. This takes K up
+//     to Vp. A CTA keeps at most 32768 columns, so Vp is at most 16 * 32768.
+// The epilogue keeps nothing per key: a weight exp(v_i - v_0) is
+// recomputed from the key wherever it is needed (the same bits each time),
+// so it takes any K.
+#include <mutex>
+
 #include "decision.cuh"
 
 #define FUSED_THREADS 512
 #define FUSED_WARPS (FUSED_THREADS / 32)
-#define FUSED_MAX_K 1024
 #define FUSED_MAX_COLS 32768
 #define FUSED_MAX_ROWS 65535
 #define FUSED_HIST_BYTES (FUSED_WARPS * 256 * 4)
@@ -138,12 +152,17 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
                         int* __restrict__ tokens,
                         unsigned char* __restrict__ exact,
                         float* __restrict__ alpha, int* __restrict__ kept,
-                        int V, int Vp, int K, int chunk, int L) {
+                        uint64_t* __restrict__ gws, int V, int Vp, int K,
+                        int chunk, int L) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* key32 = reinterpret_cast<uint32_t*>(smem);
   // chunk is a multiple of 16, so every region is 16-byte aligned
   uint32_t* hist = reinterpret_cast<uint32_t*>(key32 + chunk);
-  uint64_t* list = reinterpret_cast<uint64_t*>(hist + FUSED_WARPS * 256);
+  // this CTA's list: in shared memory, or its run of the row's workspace
+  uint64_t* list = gws == nullptr
+                       ? reinterpret_cast<uint64_t*>(hist + FUSED_WARPS * 256)
+                       : gws + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                                   (size_t)L;
   __shared__ float scratch[96];
   __shared__ int iscratch[64];
   __shared__ float state[4], fin[2];
@@ -337,9 +356,14 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
     }
   }
   __syncthreads();
-  bitonic_sort(list, L);
+  // keys past the first Kl are zero, below every real key: sorting the
+  // first power of two >= Kl sorts the list
+  int filled = 1;
+  while (filled < Kl) filled <<= 1;
+  bitonic_sort(list, min(L, filled));
 
   // -- C: the cluster merges its lists; rank 0 draws -------------------------
+  if (gws != nullptr) __threadfence();
   cl.sync();                      // every list sorted, every state written
   if (rank == 0 && warp == 0) {
     float unused;
@@ -349,20 +373,41 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
       fin[1] = s_hot;
     }
   }
-  // level s: each rank r that is a multiple of 2s keeps the larger of its
-  // key i and key L-1-i of rank r+s (through distributed shared memory):
-  // the top L of both lists as a bitonic sequence, merged descending.
-  // The levels run on C/2, C/4, ... SMs at once; a rank's list is read
-  // once, after which it is left alone until the cluster exits.
+  // level s: each rank r that is a multiple of 2s merges rank r+s's list
+  // into its own. Shared path: it keeps the larger of its key i and key
+  // L-1-i of rank r+s (through distributed shared memory), the top L of
+  // both as a bitonic sequence, merged descending; a rank's list is read
+  // once, after which it is left alone until the cluster exits. Global
+  // path: the two runs of s L keys lie end to end in the workspace; the
+  // same exchange between key i and key 2sL-1-i leaves two bitonic halves,
+  // every key of the first above every key of the second, and each half is
+  // merged descending, so the run of 2sL keeps every key. The levels run
+  // on C/2, C/4, ... SMs at once.
   for (int s = 1; s < C; s <<= 1) {
     if ((rank & (2 * s - 1)) == 0) {
-      const uint64_t* other = cl.map_shared_rank(list, rank + s);
-      for (int i = tid; i < L; i += FUSED_THREADS) {
-        const uint64_t b = other[L - 1 - i];
-        if (b > list[i]) list[i] = b;
+      if (gws == nullptr) {
+        const uint64_t* other = cl.map_shared_rank(list, rank + s);
+        for (int i = tid; i < L; i += FUSED_THREADS) {
+          const uint64_t b = other[L - 1 - i];
+          if (b > list[i]) list[i] = b;
+        }
+        __syncthreads();
+        bitonic_merge(list, L);
+      } else {
+        const int N = 2 * s * L;
+        for (int i = tid; i < N / 2; i += FUSED_THREADS) {
+          const uint64_t a = list[i], b = list[N - 1 - i];
+          if (b > a) {
+            list[i] = b;
+            list[N - 1 - i] = a;
+          }
+        }
+        __syncthreads();
+        for (int stride = N >> 2; stride >= 32; stride >>= 1)
+          bitonic_smem(list, N, N, stride);
+        bitonic_warp(list, N, N, N);
+        __threadfence();
       }
-      __syncthreads();
-      bitonic_merge(list, L);
     }
     cl.sync();
   }
@@ -373,57 +418,53 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
   const uint64_t* keys = list;     // the row's K largest keys, descending
 
   // truncation-first filter + restricted Gumbel-max draw
-  float* w_s = reinterpret_cast<float*>(hist);
-  float* p_s = w_s + K;
-  float* cum_s = p_s + K;
   const float v0k = from_ord((uint32_t)(keys[0] >> 32));
   const int tk = top_k[row];
   const float tp = top_p[row], mp = min_p[row];
   const int kk = tk > 0 ? (tk < K ? tk : K) : K;
+  auto weight = [&](int i) {
+    return expf(from_ord((uint32_t)(keys[i] >> 32)) - v0k);
+  };
   float part = 0.0f;
-  for (int i = tid; i < K; i += FUSED_THREADS) {
-    const float w = expf(from_ord((uint32_t)(keys[i] >> 32)) - v0k);
-    w_s[i] = w;
-    part += w * (i < kk ? 1.0f : 0.0f);
-  }
+  for (int i = tid; i < K; i += FUSED_THREADS)
+    part += weight(i) * (i < kk ? 1.0f : 0.0f);
   const float subset_total = block_sum(part, scratch);
   const float norm_total = tk > 0 ? subset_total : s_tot;
   const float denom = fmaxf(norm_total, 1e-30f);
-  for (int i = tid; i < K; i += FUSED_THREADS)
-    p_s[i] = w_s[i] * (i < kk ? 1.0f : 0.0f) / denom;
-  __syncthreads();
+  auto prob = [&](int i) {
+    return weight(i) * (i < kk ? 1.0f : 0.0f) / denom;
+  };
+  // the cumulative mass: a run of `per` entries a thread, then an
+  // exclusive scan of the runs across the block, in a fixed order; each
+  // thread then walks its run again, filtering and drawing
+  const int per = (K + FUSED_THREADS - 1) / FUSED_THREADS;
+  const int i0 = min(tid * per, K), i1 = min(i0 + per, K);
+  float c;
   {
-    // inclusive scan of p_s: a run of `per` entries a thread, then an
-    // exclusive scan of the runs across the block, in a fixed order
-    const int per = (K + FUSED_THREADS - 1) / FUSED_THREADS;
-    const int i0 = min(tid * per, K), i1 = min(i0 + per, K);
     float run = 0.0f;
-    for (int i = i0; i < i1; ++i) run += p_s[i];
+    for (int i = i0; i < i1; ++i) run += prob(i);
     float inc = run;
     for (int off = 1; off < 32; off <<= 1) {
       const float t = __shfl_up_sync(REPRO_FULL_MASK, inc, off);
       if (lane >= off) inc += t;
     }
-    float c = __shfl_up_sync(REPRO_FULL_MASK, inc, 1);
+    c = __shfl_up_sync(REPRO_FULL_MASK, inc, 1);
     if (lane == 0) c = 0.0f;
     if (lane == 31) scratch[warp] = inc;
     __syncthreads();
     float before = 0.0f;
     for (int w = 0; w < warp; ++w) before += scratch[w];
     c = before + c;
-    for (int i = i0; i < i1; ++i) {
-      c += p_s[i];
-      cum_s[i] = c;
-    }
     __syncthreads();
   }
-  const float p0 = p_s[0];
+  const float p0 = prob(0);
   const uint32_t row_seed = (uint32_t)(u_row[row] * 16777216.0f);
   float best = -INFINITY;
   int best_i = 0x7FFFFFFF, nkeep = 0;
-  for (int i = tid; i < K; i += FUSED_THREADS) {
-    const float p = p_s[i];
-    const bool keep = i < kk && (cum_s[i] - p) < tp && p >= mp * p0;
+  for (int i = i0; i < i1; ++i) {
+    const float p = prob(i);
+    c += p;
+    const bool keep = i < kk && (c - p) < tp && p >= mp * p0;
     nkeep += keep ? 1 : 0;
     const uint32_t id = 0xFFFFFFFFu - (uint32_t)keys[i];
     const float u = hash_uniform(FUSED_DRAW_SALT, row_seed, id);
@@ -465,7 +506,7 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
     const float mass_at_cap = subset_total / denom;
     const bool explicit_k = tk > 0 && tk <= K;
     const bool nucleus_ok = tp < 1.0f && mass_at_cap >= fminf(tp, 1.0f) - 1e-7f;
-    const float p_last = w_s[K - 1] / denom;
+    const float p_last = weight(K - 1) / denom;
     const bool minp_ok = mp > 0.0f && p_last < mp * p0;
     const bool full_mass_ok = mass_at_cap >= 1.0f - 1e-7f;
     const int win = tm <= 0.0f ? 0 : best_i;
@@ -478,34 +519,146 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
 }
 
 struct FusedLayout {
-  int C, chunk, L, smem;
+  int C, chunk, L, smem, global, clusters;
 };
 
-// The launch for (B, Vp, K); false if the kernel does not take it.
-static bool fused_layout(int B, int Vp, int K, FusedLayout* f) {
-  if (B < 1 || B > FUSED_MAX_ROWS || K < 1 || K > FUSED_MAX_K || K > Vp)
-    return false;
+// The most dynamic shared memory a CTA of the kernel can have: the card's
+// opt-in limit less the kernel's static shared memory; -1 where a query
+// fails.
+static int fused_max_dynamic_smem() {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, fused_sample_kernel) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return optin - (int)attr.sharedSizeBytes;
+}
+
+// Clusters of C CTAs with `smem` dynamic shared bytes each that the
+// current card holds at once (cudaOccupancyMaxActiveClusters), 0 where
+// the query fails. Leaves the kernel's dynamic shared memory limit at
+// `max_smem`, so any launch up to it is taken.
+static int fused_clusters(int C, int smem, int max_smem) {
+  if (cudaFuncSetAttribute(fused_sample_kernel,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess ||
+      cudaFuncSetAttribute(fused_sample_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           max_smem) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(FUSED_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int got = 0;
+  if (cudaOccupancyMaxActiveClusters(&got, fused_sample_kernel, &cfg) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return got;
+}
+
+// The launch for (B, Vp, K) on the current card; false if the kernel does
+// not take it. The shared path where its list fits in the card's opt-in
+// shared memory and a cluster of it fits on the card, else (or where
+// `force_global` asks for it) the global one.
+static bool fused_layout_uncached(int B, int Vp, int K, int force_global,
+                                  FusedLayout* f) {
+  if (B < 1 || B > FUSED_MAX_ROWS || K < 1 || K > Vp) return false;
   const int min_c = pow2_at_least((Vp + FUSED_MAX_COLS - 1) / FUSED_MAX_COLS);
   if (min_c > REPRO_MAX_CLUSTER) return false;
+  const int optin = fused_max_dynamic_smem();
+  if (optin < 0) return false;
   const RowSplit s = row_split(B, Vp, min_c);
   f->C = s.C;
   f->chunk = s.chunk;
-  f->L = pow2_at_least(K);
-  f->smem = s.chunk * 4 + FUSED_HIST_BYTES + f->L * 8;
-  return true;
+  const long long base = (long long)s.chunk * 4 + FUSED_HIST_BYTES;
+  const long long shared = base + 8LL * pow2_at_least(K);
+  if (!force_global && shared <= optin) {
+    f->clusters = fused_clusters(s.C, (int)shared, optin);
+    if (f->clusters > 0) {
+      f->L = pow2_at_least(K);
+      f->smem = (int)shared;
+      f->global = 0;
+      return true;
+    }
+  }
+  if (base > optin) return false;
+  f->L = pow2_at_least(K < s.chunk ? K : s.chunk);
+  f->smem = (int)base;
+  f->global = 1;
+  f->clusters = fused_clusters(s.C, f->smem, optin);
+  return f->clusters > 0;
 }
 
-// (C, chunk, L, dynamic shared bytes, threads) of the launch, or -1s.
-extern "C" void fused_sample_split(int B, int Vp, int K, int* out) {
+// fused_layout_uncached, remembered for the last few (device, B, Vp, K):
+// the occupancy query costs more than a launch.
+static bool fused_layout(int B, int Vp, int K, int force_global,
+                         FusedLayout* f) {
+  struct Entry {
+    int dev, B, Vp, K, force_global;
+    bool ok;
+    FusedLayout f;
+  };
+  static std::mutex mu;
+  static Entry cache[16];
+  static int used = 0, next = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    cudaGetLastError();
+    return false;
+  }
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.dev == dev && e.B == B && e.Vp == Vp && e.K == K &&
+        e.force_global == force_global) {
+      *f = e.f;
+      return e.ok;
+    }
+  }
+  Entry e = {dev, B, Vp, K, force_global,
+             fused_layout_uncached(B, Vp, K, force_global, f), *f};
+  cache[next] = e;
+  next = (next + 1) % 16;
+  used = used < 16 ? used + 1 : 16;
+  return e.ok;
+}
+
+// (C, chunk, L, dynamic shared bytes, threads, path: 0 shared / 1 global,
+// clusters the card holds at once) of the launch, or -1s. The global path
+// needs a workspace of B * C * L keys (8 bytes each).
+extern "C" void fused_sample_split(int B, int Vp, int K, int force_global,
+                                   int* out) {
   FusedLayout f;
-  const bool ok = fused_layout(B, Vp, K, &f);
+  const bool ok = fused_layout(B, Vp, K, force_global, &f);
   out[0] = ok ? f.C : -1;
   out[1] = ok ? f.chunk : -1;
   out[2] = ok ? f.L : -1;
   out[3] = ok ? f.smem : -1;
   out[4] = FUSED_THREADS;
+  out[5] = ok ? f.global : -1;
+  out[6] = ok ? f.clusters : -1;
 }
 
+// `ws`: the global path's workspace of B * C * L keys (see
+// fused_sample_split); ignored on the shared path. `force_global` takes
+// the global path where the shared one would fit (to hold the two against
+// each other).
 extern "C" int fused_sample(const float* z, const int* cp, const int* co,
                             const float* rep, const float* pres,
                             const float* freq, const float* temp,
@@ -513,12 +666,15 @@ extern "C" int fused_sample(const float* z, const int* cp, const int* co,
                             const float* min_p, const float* u_row,
                             const unsigned char* hot, int* tokens,
                             unsigned char* exact, float* alpha, int* kept,
-                            int B, int V, int Vp, int K, void* stream) {
+                            int B, int V, int Vp, int K, int force_global,
+                            void* ws, void* stream) {
   FusedLayout f;
-  if (V < 1 || V > Vp || !fused_layout(B, Vp, K, &f))
+  if (V < 1 || V > Vp || !fused_layout(B, Vp, K, force_global, &f))
     return (int)cudaErrorInvalidValue;
+  if (f.global && ws == nullptr) return (int)cudaErrorInvalidValue;
   return launch_row_clusters(
       fused_sample_kernel, f.C, B, FUSED_THREADS, (size_t)f.smem,
       (cudaStream_t)stream, z, cp, co, rep, pres, freq, temp, top_k, top_p,
-      min_p, u_row, hot, tokens, exact, alpha, kept, V, Vp, K, f.chunk, f.L);
+      min_p, u_row, hot, tokens, exact, alpha, kept,
+      f.global ? (uint64_t*)ws : (uint64_t*)nullptr, V, Vp, K, f.chunk, f.L);
 }

@@ -7,19 +7,26 @@
         --algorithm gumbel --cache paged --prompt-chunk 8 --long-prompts
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --sampler-mode host --samplers 2 --trace-out trace.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+        --stages 2 --microbatches 4 [--sampler-mode baseline]
 
 The driver streams tokens through ``Engine.generate()`` (events fire as
 tokens commit) and prints a batch report: throughput, TTFT/TPOT
 percentiles, and each request's ``finish_reason``; with the host sampler
 pool (``--sampler-mode host`` or ``adaptive``) also the pool's commit
 stall, CPU sampling and transfer time per step, and the adaptive
-controller's decisions. ``--trace-out`` writes the flight recorder's
-Chrome trace. Weights are a seeded random init in the model's dtype, made
-on the device. ``--device`` defaults to ``cuda`` and fails without a card.
+controller's decisions. ``--stages P`` (P > 1) or ``--microbatches M``
+serve through the microbatched ``PipelineEngine`` and print its
+``pipeline_report()`` (cycles, bubble fraction, stage utilisation, Eq.
+4's cycle time, stall, sampler and transfer ms). ``--trace-out`` writes
+the flight recorder's Chrome trace. Weights are a seeded random init in
+the model's dtype, made on the device, or ``--weights PATH.npz`` in the
+layout of ``models.bridge.save_npz`` (the reference's ``Model.init`` tree
+goes there with ``save_npz(path, jax.tree_util.tree_map(np.asarray,
+params))``). ``--device`` defaults to ``cuda`` and fails without a card.
 
-Flags of the reference driver that the port does not serve yet (pipeline
-stages, gateway, disaggregation) raise ``NotImplementedError`` naming
-their ROADMAP item.
+Flags of the reference driver that the port does not serve yet (gateway,
+disaggregation) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,7 +40,9 @@ from repro_torch.config import ARCH_IDS, SamplingConfig, SHVSConfig, get_arch
 from repro_torch.core.sampler_backend import registered_backends
 from repro_torch.device import resolve_device
 from repro_torch.engine.engine import Engine, EngineConfig
+from repro_torch.engine.pipeline import PipelineConfig, PipelineEngine
 from repro_torch.engine.request import Request
+from repro_torch.models.bridge import load_npz
 from repro_torch.models.model import Model
 from repro_torch.obs import StepTracer, Telemetry, write_chrome_trace
 
@@ -41,24 +50,39 @@ from repro_torch.obs import StepTracer, Telemetry, write_chrome_trace
 def build_engine(arch: str, reduced: bool, algorithm: str, batch: int,
                  max_seq: int, seed: int = 0, overlap: bool = True,
                  prompt_chunk: int = 0, cache: str = "contiguous",
-                 block_size: int = 16, num_blocks: int = 0, samplers: int = 2,
-                 sampler_mode: str = "device", pool_algorithm: str = None,
-                 telemetry: Telemetry = None, device="cuda") -> Engine:
-    """An engine over a seeded random init of ``arch`` on ``device``."""
+                 block_size: int = 16, num_blocks: int = 0,
+                 stages: int = 1, microbatches: int = 0, samplers: int = 2,
+                 sampler_mode: str = None, pool_algorithm: str = None,
+                 telemetry: Telemetry = None, weights: str = None,
+                 k_cap: int = 256, device="cuda"):
+    """An engine over ``arch`` on ``device``: a seeded random init, or the
+    tree in ``weights`` (an npz of ``models.bridge.save_npz``). With
+    ``stages > 1`` or ``microbatches`` a ``PipelineEngine`` (sampling in
+    the host pool unless ``sampler_mode`` says otherwise), else an
+    ``Engine`` (sampling on the device unless it says otherwise)."""
     dev = resolve_device(device)
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
-    params = Model(cfg).init(seed=seed, device=dev)
-    ecfg = EngineConfig(max_batch=batch, max_seq_len=max_seq,
-                        algorithm=algorithm,
-                        shvs=SHVSConfig(hot_size=min(1024,
-                                                     cfg.vocab_size // 4)),
-                        k_cap=min(256, cfg.vocab_size), seed=seed,
-                        overlap=overlap, prompt_chunk=prompt_chunk,
-                        cache=cache, block_size=block_size,
-                        num_blocks=num_blocks, sampler_mode=sampler_mode,
-                        samplers=samplers, pool_algorithm=pool_algorithm)
+    params = load_npz(weights, dev) if weights else \
+        Model(cfg).init(seed=seed, device=dev)
+    common = dict(max_batch=batch, max_seq_len=max_seq, algorithm=algorithm,
+                  shvs=SHVSConfig(hot_size=min(1024, cfg.vocab_size // 4)),
+                  k_cap=min(k_cap, cfg.vocab_size), seed=seed, cache=cache,
+                  block_size=block_size, num_blocks=num_blocks,
+                  samplers=samplers, pool_algorithm=pool_algorithm)
+    if stages > 1 or microbatches:
+        if prompt_chunk:
+            raise ValueError(
+                "--prompt-chunk is not supported with --stages/"
+                "--microbatches: the pipeline engine prefills prompts "
+                "monolithically")
+        ecfg = PipelineConfig(stages=stages, microbatches=microbatches,
+                              sampler_mode=sampler_mode or "host", **common)
+        return PipelineEngine(cfg, params, ecfg, device=dev,
+                              telemetry=telemetry)
+    ecfg = EngineConfig(overlap=overlap, prompt_chunk=prompt_chunk,
+                        sampler_mode=sampler_mode or "device", **common)
     return Engine(cfg, params, ecfg, device=dev, telemetry=telemetry)
 
 
@@ -134,10 +158,21 @@ def serve_batch(eng: Engine, reqs):
     return rep
 
 
-_UNPORTED = {
-    "gateway": ("--gateway", 9), "disaggregate": ("--disaggregate", 9),
-    "stages": ("--stages", 10), "microbatches": ("--microbatches", 10),
-}
+def print_pipeline_report(eng: PipelineEngine) -> None:
+    """The pipeline's Eq. 4 report: two lines."""
+    rep = eng.pipeline_report()
+    util = " ".join(f"s{s}={u:.1%}" for s, u in enumerate(rep["stage_util"]))
+    print(f"pipeline: bubble_frac={rep['bubble_frac']:.1%} over "
+          f"{rep['cycles']} steady-state cycles, "
+          f"cycle={rep['mean_cycle_ms']:.2f}ms, "
+          f"commit_stall={rep['stall_ms_mean']:.2f}ms, "
+          f"sync_sample={rep['sample_ms_mean']:.2f}ms, "
+          f"sampler={rep['sampler_ms_mean']:.2f}ms "
+          f"(+{rep['transfer_ms_mean']:.2f}ms transfer)")
+    print(f"per-stage utilization: {util}")
+
+
+_UNPORTED = {"gateway": ("--gateway", 3), "disaggregate": ("--disaggregate", 2)}
 
 
 def main(argv=None) -> None:
@@ -175,14 +210,16 @@ def main(argv=None) -> None:
                     help="tokens per KV block (paged cache)")
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="paged pool size; 0 = memory-equal to contiguous")
-    ap.add_argument("--sampler-mode", default="device",
+    ap.add_argument("--sampler-mode", default=None,
                     choices=("device", "host", "disaggregated", "baseline",
                              "adaptive"),
                     help="decision-plane placement: 'device' samples on the "
                          "card, 'host' in the CPU sampler pool, committed "
-                         "one step behind; 'adaptive' lets the controller "
-                         "switch placement and resize the pool online. "
-                         "'disaggregated'/'baseline' are the historic "
+                         "one step (pipeline: one re-entry) behind; "
+                         "'adaptive' lets the controller switch placement "
+                         "and resize the pool online. Default: device for "
+                         "the single-stage engine, host for the pipeline. "
+                         "'disaggregated'/'baseline' are the pipeline's "
                          "spellings of host/device")
     ap.add_argument("--samplers", type=int, default=2,
                     help="host sampler pool workers")
@@ -195,11 +232,17 @@ def main(argv=None) -> None:
                     help="enable the flight recorder and write a Chrome "
                          "trace-event JSON (chrome://tracing, "
                          "ui.perfetto.dev) to PATH at exit")
+    ap.add_argument("--stages", type=int, default=1,
+                    help="pipeline stages; >1 serves through the "
+                         "microbatched PipelineEngine")
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="microbatches in flight (0 = stages); batch % M = 0")
+    ap.add_argument("--weights", default=None, metavar="PATH.npz",
+                    help="weights in the layout of models.bridge.save_npz "
+                         "instead of the seeded random init")
     # the reference driver's flags the port does not serve: refused
     ap.add_argument("--gateway", action="store_true", default=None)
     ap.add_argument("--disaggregate", action="store_true", default=None)
-    ap.add_argument("--stages", type=int, default=None)
-    ap.add_argument("--microbatches", type=int, default=None)
     args = ap.parse_args(argv)
     for dest, (flag, item) in _UNPORTED.items():
         val = getattr(args, dest)
@@ -214,10 +257,11 @@ def main(argv=None) -> None:
                        args.max_seq, overlap=args.overlap,
                        prompt_chunk=args.prompt_chunk, cache=args.cache,
                        block_size=args.block_size, num_blocks=args.num_blocks,
+                       stages=args.stages, microbatches=args.microbatches,
                        samplers=args.samplers, sampler_mode=args.sampler_mode,
                        pool_algorithm=args.pool_algorithm,
                        telemetry=trace_telemetry(args.trace_out),
-                       device=args.device)
+                       weights=args.weights, device=args.device)
     reqs = synth_requests(args.requests, eng.cfg.vocab_size, args.max_new,
                           long_prompts=args.long_prompts, seed=args.seed,
                           greedy=args.greedy, stop_sequences=stop_sequences)
@@ -225,11 +269,16 @@ def main(argv=None) -> None:
     eng.close()
     where = torch.cuda.get_device_name(eng.device) \
         if eng.device.type == "cuda" else "cpu"
-    mode = "overlapped" if args.overlap else "sequential"
-    mode += f", {eng.client.mode} sampling"
-    host_pool = args.sampler_mode not in ("device", "baseline")
+    pipelined = isinstance(eng, PipelineEngine)
+    if pipelined:
+        mode = f"pipeline p={eng.p} M={eng.M}, {eng.client.mode} sampling"
+    else:
+        mode = "overlapped" if args.overlap else "sequential"
+        mode += f", {eng.client.mode} sampling"
+    host_pool = eng.client.is_host or eng._dpc is not None
     if host_pool:
-        mode += f" ({args.sampler_mode}, samplers={eng.client.pool.num_workers})"
+        mode += f" ({args.sampler_mode or 'host'}, " \
+                f"samplers={eng.client.pool.num_workers})"
     if args.prompt_chunk:
         mode += f", prompt_chunk={args.prompt_chunk}"
     if args.cache == "paged":
@@ -247,7 +296,9 @@ def main(argv=None) -> None:
         seed_s = "-" if r.sampling.seed is None else str(r.sampling.seed)
         print(f"  req {r.request_id:3d}: {len(r.output):3d} tokens, "
               f"seed={seed_s:>4s}, finish_reason={r.finish_reason}")
-    if host_pool:
+    if pipelined:
+        print_pipeline_report(eng)
+    elif host_pool:
         pool = host_pool_report(eng)
         fmt = lambda v: "n/a" if np.isnan(v) else f"{v:.2f}ms"
         print(f"host sampler pool: commit_stall={fmt(pool['stall_ms'])} "

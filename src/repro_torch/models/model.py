@@ -8,6 +8,8 @@
     logits, cache = model.prefill_chunk(params, toks, cache, counts,
                                         mask)                # (B, V) f32
     logits, cache = model.decode_step(params, tokens, cache)  # (B, V) f32
+    out, cache = model.decode_stage(stage_params, x_or_tokens, stage_cache,
+                                    first=..., last=...)  # one stage
 
 ``params`` is the reference's tree (``{"emb": {...}, "stack": {...}}``,
 weights ``(in, out)``, per-layer leaves stacked on a leading L axis); the
@@ -30,7 +32,7 @@ class Model:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"the {cfg.family!r} family is not ported yet (ROADMAP "
-                "'Modules to port' item 11)")
+                "'Modules to port' item 4)")
         self.cfg = cfg
 
     # -- init ---------------------------------------------------------------
@@ -112,3 +114,32 @@ class Model:
                                      self.cfg, cache, "decode",
                                      window=window)
         return lm_head(params["emb"], y[:, -1]), cache
+
+    def decode_stage(self, stage_params, x_or_tokens, cache, *, first: bool,
+                     last: bool, window=None):
+        """One pipeline stage of :meth:`decode_step`. The stages, run one
+        after another on their layer slices, compose to the full decode
+        exactly: the first stage embeds, the last closes with the final
+        norm and the LM head.
+
+        ``stage_params``: ``{"stack": sliced stack}`` plus ``"emb"`` on the
+        first stage (input embedding) and the last (tied LM head: the same
+        tensor on both). ``cache`` is the stage's layer-sliced cache.
+        Returns ``(activations (B, 1, d), cache)`` for inner stages and
+        ``(logits (B, V), cache)`` for the last."""
+        if first:
+            tokens = x_or_tokens
+            if tokens.dim() == 1:
+                tokens = tokens[:, None]
+            x, positions = self._embed_inputs(stage_params, tokens,
+                                              lens=cache["len"])
+        else:
+            x = x_or_tokens
+            positions = cache["len"][:, None] + torch.arange(
+                x.shape[1], dtype=torch.int32, device=x.device)[None, :]
+        y, cache = apply_dense_stack(stage_params["stack"], x, positions,
+                                     self.cfg, cache, "decode",
+                                     window=window, final_norm=last)
+        if last:
+            return lm_head(stage_params["emb"], y[:, -1]), cache
+        return y, cache

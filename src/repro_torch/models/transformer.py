@@ -3,7 +3,10 @@
 ``apply_dense_stack(params, x, positions, cfg, cache, mode) -> (y,
 cache)`` with ``mode`` "prefill", "decode" or "chunk" (chunked prefill).
 Layer parameters are stacked along a leading L axis, as in the reference;
-a Python loop over the layers takes the place of ``lax.scan``.
+a Python loop over the layers takes the place of ``lax.scan``. A pipeline
+stage runs the stack on a slice of the layers (``stage_bounds``,
+``slice_stage_params``, ``slice_stage_cache``): the slices are views, so
+a stage writes its K/V into the full cache's tensors.
 
 The contiguous cache is a dict ``{"len": (B,) int32, "pos": () int32,
 "k"/"v": (L, B, S_c, nkv, hd)}``; sliding-window archs keep a ring buffer
@@ -31,7 +34,7 @@ from repro_torch.models.layers import (apply_mlp, dense_init, rms_norm,
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP 'Modules to port' item 11)")
+        f"{what} is not ported yet (ROADMAP 'Modules to port' item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +114,50 @@ def _write_kv(cache_k_l, cache_v_l, k, v, lens, mode: str,
         raise ValueError(f"unknown KV write mode {mode!r}")
 
 
+def stage_bounds(num_layers: int, num_stages: int):
+    """Balanced contiguous layer split for pipeline parallelism: stage s
+    owns layers [lo, hi); earlier stages absorb the remainder, so no stage
+    is more than one layer heavier."""
+    assert 1 <= num_stages <= num_layers, (num_stages, num_layers)
+    base, rem = divmod(num_layers, num_stages)
+    bounds, lo = [], 0
+    for s in range(num_stages):
+        hi = lo + base + (1 if s < rem else 0)
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def _slice_layers(tree, lo: int, hi: int):
+    if isinstance(tree, dict):
+        return {k: _slice_layers(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi]
+
+
+def slice_stage_params(stack_params: dict, lo: int, hi: int, *, last: bool):
+    """A stage's slice of a dense stack's parameters: every stacked
+    per-layer leaf keeps rows [lo, hi) (a view); ``final_ln`` ships only
+    with the last stage (it runs after the full depth). The stages run one
+    after another compose to the full stack exactly."""
+    out = {k: _slice_layers(v, lo, hi)
+           for k, v in stack_params.items() if k != "final_ln"}
+    if last:
+        out["final_ln"] = stack_params["final_ln"]
+    return out
+
+
+def slice_stage_cache(cache: dict, lo: int, hi: int):
+    """A stage's slice of a cache: per-layer leaves (k/v slabs or paged
+    pools, leading L axis) keep layers [lo, hi) as views of the full
+    cache's tensors; per-sequence leaves (len/pos/block_table) pass
+    through whole."""
+    out = dict(cache)
+    for k in ("k", "v", "k_pool", "v_pool"):
+        if k in cache:
+            out[k] = cache[k][lo:hi]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Dense decoder stack
 # ---------------------------------------------------------------------------
@@ -147,8 +194,13 @@ def _layer(tree, i: int):
 
 def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
                       mode: str, window: Optional[int] = None,
-                      chunk_mask=None, chunk_counts=None):
-    """x: (B, S, d). Returns (final-normed y, cache).
+                      chunk_mask=None, chunk_counts=None,
+                      final_norm: bool = True):
+    """x: (B, S, d). Returns (y, cache), y final-normed unless
+    ``final_norm=False``: a pipeline stage that is not the last hands its
+    residual stream to the next stage raw (its ``params`` then need not
+    carry ``final_ln``). The layers are those ``params`` carry, so a
+    stage's slice runs its own layers.
 
     ``chunk_mask`` (B,) selects the rows of a "chunk" call whose K/V are
     written; ``chunk_counts`` (B,) gives each row's valid tokens in the
@@ -184,7 +236,7 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
     layers = {k: v for k, v in params.items() if k != "final_ln"}
     rt = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) \
         if cfg.rope_theta > 0 else None
-    for i in range(cfg.num_layers):
+    for i in range(params["ln1"].shape[0]):
         lp = _layer(layers, i)
         h = rms_norm(x, lp["ln1"], eps)
         if mode in ("decode", "chunk"):
@@ -218,4 +270,6 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
     S_new = positions.shape[-1]
     cache["len"] = cache["len"] + S_new
     cache["pos"] = cache["pos"] + S_new
-    return rms_norm(x, params["final_ln"], eps), cache
+    if final_norm:
+        x = rms_norm(x, params["final_ln"], eps)
+    return x, cache

@@ -7,13 +7,13 @@ from repro_torch.obs.export import (chrome_trace, chrome_trace_events,
 from repro_torch.obs.metrics import (DEFAULT_MS_BUCKETS, Counter, Gauge,
                                      Histogram, MetricsRegistry,
                                      render_registries)
-from repro_torch.obs.records import RecordMapping, StepRecord
+from repro_torch.obs.records import CycleRecord, RecordMapping, StepRecord
 from repro_torch.obs.telemetry import EngineMetrics, Telemetry
 from repro_torch.obs.tracer import (NULL_SPAN, NULL_TRACER, SPAN_KINDS,
                                     SpanEvent, StepTracer, merge_events)
 
 __all__ = [
-    "StepRecord", "RecordMapping",
+    "StepRecord", "CycleRecord", "RecordMapping",
     "StepTracer", "SpanEvent", "SPAN_KINDS", "NULL_TRACER", "NULL_SPAN",
     "merge_events",
     "Counter", "Gauge", "Histogram", "MetricsRegistry",

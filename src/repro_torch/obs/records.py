@@ -1,8 +1,9 @@
-"""Typed step records — one schema for the engine's stat stream
+"""Typed step records — one schema for the engines' stat streams
 (DESIGN.md §17).
 
-:class:`StepRecord` is the validated row the engine appends to
-``stats_log``. It keeps **mapping-style duck typing**
+:class:`StepRecord` is the validated row the engines append to
+``stats_log``, and :class:`CycleRecord` the pipeline engine's per-cycle
+row (``cycle_log``). Both keep **mapping-style duck typing**
 (``"stall_ms" in rec`` / ``rec["stall_ms"]`` / ``rec.get``) with the
 dict convention the old consumers relied on: a field is *present* iff it
 is set and not ``None`` — so ``"stall_ms" not in rec`` still reads "this
@@ -19,8 +20,8 @@ stats) — NaN means "no sample", never "zero".
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
-from typing import Any, Dict, Iterator, Optional
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict, Iterator, List, Optional
 
 _NAN = float("nan")
 
@@ -150,4 +151,29 @@ class StepRecord(RecordMapping):
         }
 
 
-__all__ = ["StepRecord", "RecordMapping"]
+@dataclass
+class CycleRecord(RecordMapping):
+    """One pipeline cycle's timing row (``PipelineEngine.cycle_log``):
+    per-stage busy time plus the sampling-path costs the Eq. 4 bubble
+    accounting needs. ``busy[s]`` is ``None`` for a stage that served no
+    microbatch this cycle (fill/drain ramp)."""
+
+    cycle: int
+    busy: List[Optional[float]] = field(default_factory=list)  # seconds
+    stall: float = 0.0              # commit block on the pool ticket (s)
+    sample: float = 0.0             # synchronous last-stage draw (s, Eq. 4)
+    sampler: Optional[float] = None    # pool CPU sampling (s)
+    transfer: Optional[float] = None   # pool wait for the logits' copy (s)
+
+    def __post_init__(self) -> None:
+        self.cycle = int(self.cycle)
+        if self.cycle < 0:
+            raise ValueError(f"cycle must be >= 0, got {self.cycle}")
+
+    @property
+    def full(self) -> bool:
+        """Every stage served a microbatch — a steady-state cycle."""
+        return all(b is not None for b in self.busy)
+
+
+__all__ = ["StepRecord", "CycleRecord", "RecordMapping"]

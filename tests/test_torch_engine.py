@@ -8,6 +8,7 @@ finish reasons — are equal for ``shvs`` and ``fused``, overlapped and
 sequential. The reference is run once per backend (its overlapped and
 sequential loops are held equal by its own suite).
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -90,6 +91,28 @@ def test_generate_streams_match_reference(weights, reference_streams,
     assert len([e for e in events if e.token is not None]) == \
         sum(len(r.output) for r in reqs)
     assert len(eng.stats_log) > 0 and eng.in_flight == 0
+
+
+def test_fused_engine_at_k_cap_2048_matches_reference():
+    """``algorithm="fused", k_cap=2048`` at V = 4096 (K = 2048 of a padded
+    V of 4096: past the CUDA kernel's old cap) serves the reference's
+    streams."""
+    cfg = dataclasses.replace(get_arch(ARCH).reduced(), vocab_size=4096)
+    tcfg = dataclasses.replace(tget(ARCH).reduced(), vocab_size=4096)
+    p = JModel(cfg).init(jax.random.PRNGKey(1))
+    tp = from_jax_params(jax.tree_util.tree_map(np.asarray, p))
+    kw = dict(algorithm="fused", k_cap=2048, max_batch=4, max_seq_len=64)
+    eng = JEngine(cfg, p, JECfg(shvs=JSH(hot_size=512), **kw))
+    jreqs = _requests(JRequest, JS, cfg.vocab_size)
+    list(eng.generate(jreqs))
+    eng.close()
+    teng = TEngine(tcfg, tp, TECfg(shvs=TSH(hot_size=512), **kw),
+                   device="cpu")
+    treqs = _requests(TRequest, TS, cfg.vocab_size)
+    list(teng.generate(treqs))
+    teng.close()
+    assert [(r.output, r.finish_reason) for r in treqs] == \
+        [(r.output, r.finish_reason) for r in jreqs]
 
 
 @pytest.mark.parametrize("method,item", [

@@ -17,6 +17,7 @@ from repro_torch.core import penalties as pen
 from repro_torch.core.decision_plane import DecisionPlane
 from repro_torch.core.host_sampler import HostSamplerPool
 from repro_torch.engine.engine import Engine, EngineConfig, SlotParams
+from repro_torch.engine.pipeline import PipelineConfig, PipelineEngine
 from repro_torch.kernels import (fused_kernel, gumbel_kernel, penalty_kernel,
                                  ref, shvs_kernel)
 from repro_torch.launch.serve import synth_requests
@@ -209,8 +210,41 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     row = torch.ones(2, device=dev)
     args = (z, zi, zi, row, row, row, row, zi[:, 0].contiguous(), row, row,
             row, hot)
-    with pytest.raises(ValueError, match="K <= 1024"):
-        fused_kernel.fused_sample(*args, k_cap=2048, block_v=2048)
+    with pytest.raises(ValueError, match="path"):
+        fused_kernel.fused_sample(*args, k_cap=64, block_v=64, path="smem")
+    big = torch.zeros((1, fused_kernel.MAX_VP + 1), device=dev)
+    with pytest.raises(ValueError, match="padded V"):
+        fused_kernel.fused_sample(big, *args[1:], k_cap=64, block_v=2048)
+
+
+@pytest.mark.parametrize("B,V,k_cap", [(8, 49152, 2048), (8, 49152, 16384),
+                                       (8, 49152, None), (8, 151936, None)])
+def test_fused_large_k_matches_plain_version(B, V, k_cap):
+    """K past the old 1024 cap, up to the padded V (None): the kernel on
+    the path it picks and on the global path equals the plain version in
+    tokens and alpha (to rounding) and the two paths equal each other bit
+    for bit. kept and exact are compared where the kept mass stays clear
+    of 1.0 (ROADMAP 'Faults' 1): rows with an explicit top_k, and every
+    row while K < padded V."""
+    dev = _cuda()
+    x = _inputs(B, V, V + 7, dev, "random")
+    f = [x[k] for k in _FUSED]
+    Vp = -(-V // 2048) * 2048
+    K = Vp if k_cap is None else k_cap
+    auto = fused_kernel.split(B, Vp, K)
+    assert auto["path"] == ("global" if K > 16384 else "shared")
+    assert fused_kernel.split(B, Vp, K, "global")["path"] == "global"
+    want = ref.fused_sample_ref(*f, k_cap=K, block_v=2048)
+    got = fused_kernel.fused_sample(*f, k_cap=K, block_v=2048)
+    forced = fused_kernel.fused_sample(*f, k_cap=K, block_v=2048,
+                                       path="global")
+    assert all(torch.equal(g, h) for g, h in zip(got, forced))
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    clear = x["top_k"] > 0 if K == Vp else torch.ones(B, dtype=torch.bool,
+                                                      device=dev)
+    for i in (1, 3):                     # exact, kept
+        assert torch.equal(got[i][clear], want[i][clear])
 
 
 @pytest.mark.parametrize("B,V,seed", [(1, 300, 0), (3, 50021, 42),
@@ -247,6 +281,37 @@ def test_engine_on_cuda_matches_engine_on_cpu(algorithm):
             shvs=SHVSConfig(hot_size=128), k_cap=64), device=device)
         reqs = synth_requests(3, cfg.vocab_size, 6, seed=5) + \
             synth_requests(3, cfg.vocab_size, 6, rng_seed=1, greedy=True)
+        for i, r in enumerate(reqs):
+            r.request_id = i
+        list(eng.generate(reqs))
+        eng.close()
+        streams.append([(r.output, r.finish_reason) for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("mode,cache,algorithm", [
+    ("disaggregated", "contiguous", "shvs"), ("baseline", "contiguous", "shvs"),
+    ("baseline", "paged", "fused"), ("disaggregated", "paged", "shvs")])
+def test_pipeline_engine_on_cuda_matches_cpu(mode, cache, algorithm):
+    """The pipeline engine (2 stages, 4 microbatches of 2 rows) on CUDA
+    against itself on the CPU, on a 4-layer reduced f32 model: baseline
+    draws through the kernels on the card (``fused`` with k_cap = 2048,
+    which the engine caps at V = 512), disaggregated in the host pool."""
+    dev = _cuda()
+    cfg = dataclasses.replace(get_arch("smollm-360m").reduced(),
+                              num_layers=4)
+    params = Model(cfg).init(seed=2, device="cpu")
+    to = lambda t: {k: to(v) if isinstance(v, dict) else v.to(dev)
+                    for k, v in t.items()}
+    streams = []
+    for device, p in (("cpu", params), (dev, to(params))):
+        eng = PipelineEngine(cfg, p, PipelineConfig(
+            max_batch=8, max_seq_len=64, algorithm=algorithm,
+            shvs=SHVSConfig(hot_size=128), k_cap=2048, stages=2,
+            microbatches=4, sampler_mode=mode, cache=cache, block_size=16),
+            device=device)
+        reqs = synth_requests(5, cfg.vocab_size, 6, seed=5) + \
+            synth_requests(4, cfg.vocab_size, 6, rng_seed=1, greedy=True)
         for i, r in enumerate(reqs):
             r.request_id = i
         list(eng.generate(reqs))

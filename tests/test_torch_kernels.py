@@ -152,23 +152,60 @@ def test_streaming_mass_update_matches_reference():
     np.testing.assert_allclose(tsh.numpy(), np.asarray(sh), rtol=1e-6)
 
 
+# the last four carry the inputs of the reference's fused ≡ unfused
+# property (tests/test_property.py): ±inf entries, a row all at -1e30,
+# bf16 logits, k_cap 8..200, τ = 0 and top_k = 1 rows
+ADVERSARIAL = [dict(k_cap=8, bf16=False, seed=1),
+               dict(k_cap=16, bf16=True, seed=2),
+               dict(k_cap=64, bf16=False, seed=3),
+               dict(k_cap=200, bf16=True, seed=4)]
 FUSED_SWEEP = [(1, 600, 128, "random", False), (3, 700, 256, "all", True),
                (8, 512, 2048, "none", False), (5, 1000, 512, "random", True),
-               (4, 2500, 2048, "random", False), (7, 333, 128, "all", True)]
+               (4, 2500, 2048, "random", False), (7, 333, 128, "all", True),
+               (5, 384, 128, "random", ADVERSARIAL[0]),
+               (4, 512, 256, "all", ADVERSARIAL[1]),
+               (3, 1024, 512, "none", ADVERSARIAL[2]),
+               (5, 192, 128, "random", ADVERSARIAL[3])]
+
+
+def _adversarial(x, bf16: bool, seed: int):
+    """The property's injections on top of ``_inputs``: three +inf and
+    three -inf entries, a row all at -1e30, a τ = 0 row, a top_k = 1 row;
+    bf16 logits where asked (returned as (jnp, torch) logits)."""
+    rs = np.random.default_rng(seed)
+    z = rs.normal(0, 4, x["z"].shape).astype(np.float32)
+    B = z.shape[0]
+    z.flat[rs.integers(0, z.size, 3)] = np.inf
+    z.flat[rs.integers(0, z.size, 3)] = -np.inf
+    z[rs.integers(0, B)] = -1e30
+    x["temp"][rs.integers(0, B)] = 0.0
+    x["top_k"][rs.integers(0, B)] = 1
+    x["z"] = z
+    if not bf16:
+        return jnp.asarray(z), _t(z)
+    jz = jnp.asarray(z).astype(jnp.bfloat16)
+    return jz, _t(np.asarray(jz.astype(jnp.float32))).to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("B,V,block_v,hot,ext", FUSED_SWEEP)
 def test_fused_sample_ref_matches_reference(B, V, block_v, hot, ext):
-    x = _inputs(B, V, 30 + V, extremes=ext, hot=hot)
-    want = jref.fused_sample_ref(*[jnp.asarray(x[k]) for k in _FUSED],
-                                 k_cap=256, block_v=block_v)
-    got = tref.fused_sample_ref(*[_t(x[k]) for k in _FUSED], k_cap=256,
-                                block_v=block_v)
+    adv = ext if isinstance(ext, dict) else None
+    x = _inputs(B, V, 30 + V, extremes=adv is None and ext, hot=hot)
+    k_cap = 256 if adv is None else adv["k_cap"]
+    jargs = [jnp.asarray(x[k]) for k in _FUSED]
+    targs = [_t(x[k]) for k in _FUSED]
+    if adv is not None:
+        jargs[0], targs[0] = _adversarial(x, adv["bf16"], adv["seed"])
+        jargs[1:] = [jnp.asarray(x[k]) for k in _FUSED[1:]]
+        targs[1:] = [_t(x[k]) for k in _FUSED[1:]]
+    want = jref.fused_sample_ref(*jargs, k_cap=k_cap, block_v=block_v)
+    got = tref.fused_sample_ref(*targs, k_cap=k_cap, block_v=block_v)
     for i in (0, 1, 3):                          # tokens, exact, kept
         np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
                                rtol=1e-6)
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert ((got[0] >= 0) & (got[0] < V)).all()
 
 
 @pytest.mark.parametrize("V,scale", [(512, 4.0), (128, 1.5)])

@@ -79,5 +79,5 @@ def test_bridge_keeps_bf16_bits():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         TModel(tget("rwkv6-3b").reduced())
