@@ -85,6 +85,27 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    logit gap is below ``GAP_CLEAR``; then the pool alone at the
    microbatches' R = 4, 2, 1 rows over 1–8 workers.
 
+8. KV migration, the prefill/decode handoff and the gateway, at full
+   width (smollm-360m, bf16, batch 8, max_seq 256, one parameter tree for
+   every engine of the phase): (a) one request mid-decode exported from a
+   contiguous and from a paged engine: its K/V equal the cache rows bit
+   for bit, ``to_bytes`` -> ``from_bytes`` keeps the bf16 bits, and the
+   importing engine's K/V and histogram rows are the payload's; export,
+   bytes and import timed; (b) ``HandoffScheduler`` (a prefill and a
+   decode engine) on ``shvs`` contiguous, ``shvs`` paged and ``gumbel``
+   paged with chunked prefill (64) and long prompts, 8 requests of 16
+   tokens, seeded-sampled and greedy: every request migrates, the
+   streams equal the never-migrated engine's (a first difference only
+   where the top-two logit gap is below ``GAP_CLEAR``, counted), the
+   decision kernels launch, and per request the export and import ms,
+   KV bytes and handoff wait from the ``kv_migrate``/``handoff_wait``
+   spans; (c) ``GatewayServer`` on 127.0.0.1:0 with 8 concurrent
+   ``stream_completion`` clients over 1 replica, 2 replicas and a
+   1 prefill + 1 decode paged fleet: wire streams equal one engine's
+   in-process streams (same rule), wire TTFT and TPOT p50
+   (``summarize_traces``), each replica's stats and ``migration_stats()``
+   and the decision kernels' launches.
+
 ``python3 chip_smoke.py --host-only`` builds the kernels and runs phase 5's
 ``shvs`` rows on the device and in the host pool, in turns, and the pool
 alone at the main shape, printing one JSON line: run it under different
@@ -92,7 +113,8 @@ threading settings, one process each.
 
 ``python3 chip_smoke.py --pipeline-only`` builds the kernels and runs phase
 7 alone, printing one JSON line: run it under torch's default threads and
-under ``OMP_NUM_THREADS=1``, one process each.
+under ``OMP_NUM_THREADS=1``, one process each. ``--migration-only`` runs
+phase 8 alone the same way.
 
 ``python3 chip_smoke.py --time-only [--src DIR]`` builds and runs phase 2's
 timing alone, of the package under DIR (default ``src``), and prints one
@@ -1288,6 +1310,364 @@ def pipeline_only(dev, card):
     return 0
 
 
+# phase 8: KV migration, the prefill/decode handoff and the gateway
+MIGRATE_POOL = dict(cache="paged", num_blocks=0)   # the memory-equal pool
+HANDOFF_CONFIGS = (("shvs", "contiguous", 0), ("shvs", "paged", 0),
+                   ("gumbel", "paged", 64))
+GATEWAY_PROMPTS = ("the quick brown fox", "jumps over the lazy dog",
+                   "sphinx of black quartz", "judge my vow",
+                   "pack my box with", "five dozen liquor jugs",
+                   "how vexingly quick", "daft zebras jump")
+
+
+def migrate_payload(dev, card, cache):
+    """Phase 8 (a): one request mid-decode exported from a full-width
+    engine and imported into a second one over the same parameters. The
+    exported K/V equal the source cache rows bit for bit, ``to_bytes`` ->
+    ``from_bytes`` keeps the bf16 bits, and the importer's rows (K/V and
+    histograms) are the payload's. Times: export with a synchronise (host
+    clock) and the copy's device time (CUDA events), the bytes' round
+    trip, the import's install (its ``kv_migrate`` span)."""
+    import torch
+    from repro_torch.engine import KVPayload
+    from repro_torch.engine.paged_cache import gather_slot_kv
+    from repro_torch.launch.serve import synth_requests, trace_telemetry
+    kw = MIGRATE_POOL if cache == "paged" else {}
+    a = engine("shvs", dev, telemetry=trace_telemetry("on"), **kw)
+    b = engine("shvs", dev, params=a.params, telemetry=trace_telemetry("on"),
+               **kw)
+    bits = lambda t: t.contiguous().view(torch.int16)
+
+    def rows(eng, slot, T):
+        if cache == "paged":
+            return gather_slot_kv(eng.cache, eng.alloc.owned[slot], T,
+                                  eng.pcfg)
+        return eng.cache["k"][:, slot, :T], eng.cache["v"][:, slot, :T]
+
+    reqs = synth_requests(8, V_MAIN, 16, seed=0)
+    a.submit(reqs)
+    while len(reqs[3].output) < 4:
+        a.step()
+    a.flush()
+    r = reqs[3]
+    slot, T = r.slot, int(a.cache["len"][r.slot])
+    src_k, src_v = (t.clone() for t in rows(a, slot, T))
+    src_h = [t[slot].clone() for t in a.pstate]
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    p = a.export_request(r.request_id)
+    e1.record()
+    torch.cuda.synchronize()
+    export_ms = (time.perf_counter() - t0) * 1e3
+    assert p.k.dtype == torch.bfloat16 and p.kv_len == T
+    assert torch.equal(bits(p.k), bits(src_k)) and \
+        torch.equal(bits(p.v), bits(src_v)), "export changed K/V bits"
+    assert torch.equal(p.prompt_counts, src_h[0]) and \
+        torch.equal(p.output_counts, src_h[1])
+    t0 = time.perf_counter()
+    blob = p.to_bytes()
+    t1 = time.perf_counter()
+    q = KVPayload.from_bytes(blob)
+    t2 = time.perf_counter()
+    assert q.k.dtype == torch.bfloat16
+    assert torch.equal(bits(q.k), bits(p.k).cpu()) and \
+        torch.equal(bits(q.v), bits(p.v).cpu()), "bytes changed K/V bits"
+    landed = b.import_request(q)
+    b.step()                 # admission installs the payload, then decodes
+    b.flush()
+    got_k, got_v = rows(b, landed.slot, T)
+    assert torch.equal(bits(got_k), bits(q.k).to(dev)) and \
+        torch.equal(bits(got_v), bits(q.v).to(dev)), "import changed bits"
+    assert torch.equal(b.pstate.prompt_counts[landed.slot].cpu(),
+                       q.prompt_counts)
+    want = q.output_counts.clone()
+    for t in landed.output[len(q.output):]:
+        want[t] += 1
+    assert torch.equal(b.pstate.output_counts[landed.slot].cpu(), want)
+    span = next(e for e in b.tracer.events() if e.kind == "kv_migrate")
+    a.close()
+    b.close()
+    rep = {"cache": cache, "kv_len": T, "kv_bytes": p.nbytes,
+           "bytes_per_token": p.nbytes // T, "npz_bytes": len(blob),
+           "export_ms_synchronised": export_ms,
+           "export_device_ms": e0.elapsed_time(e1),
+           "to_bytes_ms": (t1 - t0) * 1e3, "from_bytes_ms": (t2 - t1) * 1e3,
+           "import_install_ms": span.dur * 1e3}
+    print(f"migration payload {cache}: T = {T} tokens, {p.nbytes} KV bytes "
+          f"({p.nbytes // T} a token), npz {len(blob)} bytes; export "
+          f"{export_ms:.3f} ms synchronised ({rep['export_device_ms']:.3f} "
+          f"ms between events), to_bytes {rep['to_bytes_ms']:.1f} ms, "
+          f"from_bytes {rep['from_bytes_ms']:.1f} ms, import install "
+          f"{rep['import_install_ms']:.3f} ms (host); K/V and histograms "
+          f"bitwise equal through export, bytes and import [{card}]")
+    return rep
+
+
+def migration_spans(engines):
+    """Per-request export / import host ms, KV bytes and handoff wait ms
+    from the engines' ``kv_migrate`` and ``handoff_wait`` spans."""
+    ev = [e for eng in engines for e in eng.tracer.events()]
+    pick = lambda kind, d=None: [e for e in ev if e.kind == kind and
+                                 dict(e.args).get("direction") == d]
+    med = lambda xs: sorted(xs)[len(xs) // 2] if xs else float("nan")
+    out, inn = pick("kv_migrate", "out"), pick("kv_migrate", "in")
+    wait = pick("handoff_wait")
+    return {"migrations": len(out),
+            "export_ms_p50": med([e.dur * 1e3 for e in out]),
+            "import_ms_p50": med([e.dur * 1e3 for e in inn]),
+            "handoff_wait_ms_p50": med([e.dur * 1e3 for e in wait]),
+            "kv_bytes_p50": med([dict(e.args)["bytes"] for e in out]),
+            "per_request": [
+                {"request_id": dict(o.args)["request_id"],
+                 "kv_len": dict(o.args)["kv_len"],
+                 "bytes": dict(o.args)["bytes"],
+                 "export_ms": o.dur * 1e3, "import_ms": i.dur * 1e3,
+                 "handoff_wait_ms": w.dur * 1e3}
+                for o, i, w in zip(*(sorted(x, key=lambda e: dict(
+                    e.args)["request_id"]) for x in (out, inn, wait)))]}
+
+
+def compare_streams(eng, got, want, dev):
+    """Greedy/seeded streams that must be equal: the agreement and first
+    difference (``agreement``), which is allowed only where the top-two
+    logit gap is below ``GAP_CLEAR``; returns the comparison, counting the
+    requests that differ."""
+    cmp = agreement(eng, got, want, dev)
+    first = cmp["first_difference"]
+    assert first is None or first["top2_gap"] < GAP_CLEAR, cmp
+    cmp["requests_differing"] = sum(a.output != b.output
+                                    for a, b in zip(got, want))
+    return cmp
+
+
+# (kind, engine) of phase 8 (b)'s runs, in turns: the seeded batch on
+# the never-migrated engine and through the handoff, then the greedy one
+HANDOFF_TURNS = (("seeded", "single"), ("seeded", "handoff"),
+                 ("seeded", "handoff"), ("seeded", "single"),
+                 ("greedy", "single"), ("greedy", "handoff"))
+
+
+def serve_handoff(dev, card):
+    """Phase 8 (b): ``HandoffScheduler`` (one prefill engine, one decode
+    engine over shared parameters) against one engine that never
+    migrates: ``shvs`` contiguous, ``shvs`` paged, ``gumbel`` paged with
+    chunked prefill (64) and long prompts, each on 8 requests of 16 new
+    tokens, seeded-sampled (top_k 40, top_p 0.95: every row takes the
+    per-request draw, so the streams do not depend on the schedule) and
+    greedy, in the turns of ``HANDOFF_TURNS``. The prefill of all 8 rows
+    and every decode step keep the single engine's GEMM shapes, so the
+    streams are expected equal; a first difference is allowed only under
+    the top-2 gap rule, and counted. Launch counters are set to 0 before
+    each handoff run and read after it."""
+    import torch
+    from repro_torch.engine import HandoffScheduler
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (latency_report, serve_batch,
+                                          synth_requests, trace_telemetry)
+    out, params = {}, None
+    for algorithm, cache, chunk in HANDOFF_CONFIGS:
+        kw = dict(prompt_chunk=chunk, **(MIGRATE_POOL if cache == "paged"
+                                          else {}))
+        single = engine(algorithm, dev, params=params, **kw)
+        params = single.params
+        hs = HandoffScheduler(*(engine(algorithm, dev, params=params,
+                                       telemetry=trace_telemetry("on"), **kw)
+                                for _ in range(2)))
+        for warm in (single.generate, hs.generate):
+            list(warm(synth_requests(2, V_MAIN, 2, rng_seed=99, seed=0)))
+        for e in (hs.prefill, hs.decode):
+            e.tracer.clear()
+        name = f"{algorithm}_{cache}" + (f"_chunk{chunk}" if chunk else "")
+        first = {}
+        for turn, (kind, who) in enumerate(HANDOFF_TURNS):
+            reqs = synth_requests(8, V_MAIN, 16, long_prompts=bool(chunk),
+                                  **({"seed": 0} if kind == "seeded"
+                                     else {"greedy": True}))
+            if who == "single":
+                rep = serve_batch(single, reqs)
+                if kind in first:        # the same engine, the same bits
+                    assert [r.output for r in reqs] == \
+                        [r.output for r in first[kind]], (name, kind)
+                first.setdefault(kind, reqs)
+            else:
+                n0 = hs.migrated
+                t0 = time.perf_counter()
+                for r in reqs:
+                    r.arrival_time = t0
+                ops.reset_launch_counts()
+                list(hs.generate(reqs))
+                torch.cuda.synchronize(dev)
+                counts = ops.launch_counts()
+                rep = latency_report(reqs, t0, time.perf_counter())
+                assert hs.migrated - n0 == 8
+                assert all(r.handoff_count == 1 for r in reqs)
+                want = ("gumbel_argmax" if algorithm == "gumbel"
+                        else "shvs_masses")
+                assert counts["penalty_scale"] > 0 and counts[want] > 0, \
+                    counts
+                cmp = compare_streams(single, reqs, first[kind], dev)
+                spans = migration_spans((hs.prefill, hs.decode))
+                for e in (hs.prefill, hs.decode):
+                    e.tracer.clear()
+                rep.update(launches=counts, vs_never_migrated=cmp,
+                           spans=spans)
+            for r in reqs:
+                assert r.finish_reason == "length" and len(r.output) == 16, \
+                    (name, kind, who, r.request_id, r.finish_reason)
+            out[f"{name}_{kind}_{who}_turn{turn}"] = rep
+            line = (f"handoff {name} turn {turn} {kind} {who}: "
+                    f"{rep['tok_per_s']:.1f} tok/s, TTFT p50 "
+                    f"{rep['ttft_p50_ms']:.2f} ms, TPOT p50 "
+                    f"{rep['tpot_p50_ms']:.2f} ms")
+            if who == "handoff":
+                per = [(q["request_id"], q["kv_len"]) + tuple(
+                    round(q[k], 3) for k in
+                    ("export_ms", "import_ms", "handoff_wait_ms"))
+                    for q in spans["per_request"]]
+                line += (f"; {spans['migrations']} migrations, per request "
+                         f"p50: export {spans['export_ms_p50']:.3f} ms, "
+                         f"import {spans['import_ms_p50']:.3f} ms (host), "
+                         f"{spans['kv_bytes_p50']} KV bytes, handoff wait "
+                         f"{spans['handoff_wait_ms_p50']:.3f} ms; per "
+                         f"request (id, tokens, export ms, import ms, wait "
+                         f"ms): {per}; launches "
+                         f"{counts}; vs never migrated: agreement "
+                         f"{cmp['agreement']:.4f}, "
+                         f"{cmp['requests_differing']} requests differ, "
+                         f"first difference {cmp['first_difference']}")
+            print(f"{line} [{card}]")
+        hs.close()
+        single.close()
+    return out, params
+
+
+def gateway_run(fleet, prompts, payloads, warm=2):
+    """Serve ``payloads`` concurrently over live HTTP/SSE from ``fleet``
+    (after ``warm`` short requests, one at a time); returns the results,
+    the wire summary of the measured requests and each replica's stats."""
+    import asyncio
+    from repro_torch.gateway import GatewayServer, summarize_traces
+    from repro_torch.gateway.client import stream_completion
+
+    async def drive():
+        gw = GatewayServer(fleet)
+        await gw.serve(host="127.0.0.1", port=0)
+        try:
+            for i in range(warm):
+                res = await stream_completion(gw.host, gw.port, {
+                    "prompt": prompts[i], "max_tokens": 2, "seed": 1})
+                assert res.status == 200 and res.error is None, res.error
+            n0 = len(gw.traces)
+            results = await asyncio.gather(*[
+                stream_completion(gw.host, gw.port, pl) for pl in payloads])
+            wire = summarize_traces(list(gw.traces)[n0:])
+            stats = {r.name: r.stats() for r in fleet.replicas}
+        finally:
+            await gw.shutdown()
+        return results, wire, stats
+
+    return asyncio.run(drive())
+
+
+def serve_gateway(dev, card, params):
+    """Phase 8 (c): ``GatewayServer`` on 127.0.0.1:0 with 8 concurrent
+    ``stream_completion`` clients (4 seeded-sampled, 4 greedy; 16 tokens
+    each) over 1 replica, 2 replicas and a disaggregated fleet of 1
+    prefill + 1 decode paged replica, all full-width smollm-360m over ONE
+    parameter tree on this card, each replica driven from its fleet
+    worker thread. Wire streams must equal one engine's in-process
+    streams of the same requests (a first difference only under the top-2
+    gap rule, counted). Prints wire TTFT and TPOT p50, each replica's
+    stats with its ``migration_stats()``, and the decision kernels'
+    launches in the measured run."""
+    from repro_torch.engine import Request
+    from repro_torch.gateway import ByteCodec, ReplicaFleet
+    from repro_torch.config import SamplingConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch
+    codec = ByteCodec()
+
+    def contract(i):
+        return (dict(temperature=0.9, top_k=40, top_p=0.95,
+                     repetition_penalty=1.1, seed=7000 + i) if i % 2 == 0
+                else dict(greedy=True, repetition_penalty=1.1))
+
+    payloads = [{"prompt": p, "max_tokens": 16, "session_id": f"s{i}",
+                 **contract(i)} for i, p in enumerate(GATEWAY_PROMPTS)]
+    inproc = engine("shvs", dev, params=params)
+    serve_batch(inproc, [Request(request_id=99, prompt=codec.encode("warm"),
+                                 max_new_tokens=2)])
+    want = [Request(request_id=i, prompt=codec.encode(p), max_new_tokens=16,
+                    sampling=SamplingConfig(**contract(i)))
+            for i, p in enumerate(GATEWAY_PROMPTS)]
+    ref_rep = serve_batch(inproc, want)
+    print(f"gateway reference (one engine in process): "
+          f"{ref_rep['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{ref_rep['ttft_p50_ms']:.2f} ms, TPOT p50 "
+          f"{ref_rep['tpot_p50_ms']:.2f} ms [{card}]")
+    out = {"in_process": ref_rep}
+    fleets = (("1_replica", 1, None, {}),
+              ("2_replicas", 2, None, {}),
+              ("disaggregated_1p1d", 2, ["prefill", "decode"], MIGRATE_POOL))
+    for name, n, roles, kw in fleets:
+        engines = [engine("shvs", dev, params=params, **kw)
+                   for _ in range(n)]
+        fleet = ReplicaFleet(engines, capacity=16, roles=roles)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results, wire, stats = gateway_run(fleet, GATEWAY_PROMPTS, payloads)
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        assert all(e._closed for e in engines)
+        got = []
+        for i, res in enumerate(results):
+            assert res.status == 200 and res.error is None, (name, res.error)
+            assert res.finish_reason == "length" and len(res.tokens) == 16
+            r = Request(request_id=i, prompt=want[i].prompt,
+                        max_new_tokens=16)
+            r.output = list(res.tokens)
+            got.append(r)
+        cmp = compare_streams(inproc, got, want, dev)
+        assert counts["penalty_scale"] > 0 and counts["shvs_masses"] > 0
+        if roles:
+            moved = sum(s["migrations_out"] for s in stats.values())
+            assert moved == sum(s["migrations_in"] for s in stats.values())
+            assert moved >= len(payloads), stats
+        if n == 2 and not roles:
+            assert all(s["served"] > 0 for s in stats.values()), stats
+        out[name] = {"wire": wire, "replicas": stats, "launches": counts,
+                     "seconds_with_warmup": seconds, "vs_in_process": cmp}
+        print(f"gateway {name}: wire TTFT p50 {wire['ttft_ms']['p50']:.2f} "
+              f"ms, TPOT p50 {wire['tpot_ms']['p50']:.2f} ms, queue p50 "
+              f"{wire['queue_ms']['p50']:.2f} ms over {wire['finished']} "
+              f"streams; replicas {stats}; launches {counts}; wire vs in "
+              f"process: agreement {cmp['agreement']:.4f}, "
+              f"{cmp['requests_differing']} requests differ, first "
+              f"difference {cmp['first_difference']} [{card}]")
+    inproc.close()
+    return out
+
+
+def serve_migration(dev, card):
+    """Phase 8: the payload (a), the handoff (b) and the gateway (c)."""
+    out = {"payload": [migrate_payload(dev, card, cache)
+                       for cache in ("contiguous", "paged")]}
+    out["handoff"], params = serve_handoff(dev, card)
+    out["gateway"] = serve_gateway(dev, card, params)
+    return out
+
+
+def migration_only(dev, card):
+    """``--migration-only``: phase 8 alone; prints one JSON line."""
+    print(json.dumps({"migration_only": {
+        "card": card, "switch_interval_s": sys.getswitchinterval(),
+        "runs": serve_migration(dev, card)}}))
+    return 0
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1489,10 +1869,21 @@ def main() -> int:
     ap.add_argument("--pipeline-only", action="store_true",
                     help="build the kernels and run phase 7 (the pipeline "
                          "engine) only; prints one JSON line")
+    ap.add_argument("--migration-only", action="store_true",
+                    help="build the kernels and run phase 8 (KV migration, "
+                         "the handoff and the gateway) only; prints one "
+                         "JSON line")
+    ap.add_argument("--switch-interval", type=float, default=None,
+                    help="sys.setswitchinterval(seconds) before anything "
+                         "runs: how often Python threads (the gateway's "
+                         "replicas, its event loop) hand over the "
+                         "interpreter lock")
     ap.add_argument("--src", default=None,
                     help="with --time-only: time the repro_torch package "
                          "under this directory instead of ./src")
     args = ap.parse_args()
+    if args.switch_interval is not None:
+        sys.setswitchinterval(args.switch_interval)
     if args.src:
         sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -1540,6 +1931,8 @@ def main() -> int:
         return host_only(dev, card)
     if args.pipeline_only:
         return pipeline_only(dev, card)
+    if args.migration_only:
+        return migration_only(dev, card)
 
     t_phase = time.perf_counter()
 
@@ -1563,6 +1956,8 @@ def main() -> int:
     phase_done(6)
     pipeline_runs = serve_pipeline(dev, card)
     phase_done(7)
+    migration_runs = serve_migration(dev, card)
+    phase_done(8)
 
     launch_of = {"penalty_scale": counts["shvs"]["penalty_scale"],
                  "shvs_masses": counts["shvs"]["shvs_masses"],
@@ -1586,7 +1981,8 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__, "kernels": kernels,
               "model_check_max_abs_err": model_err, "runs": runs,
               "step_profile": steps, "host_placement": host_runs,
-              "pipeline": pipeline_runs, "fused_large_k": large_k,
+              "pipeline": pipeline_runs, "migration": migration_runs,
+              "fused_large_k": large_k,
               "gumbel_sass": sass,
               "gumbel_issue_floor": floor}
     (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))

@@ -1,9 +1,10 @@
 """Assigned architecture configs. Importing this package registers all of
 them; individual modules may also be imported lazily via
-:func:`repro.config.get_arch`."""
+:func:`repro_torch.config.get_arch`."""
 from repro_torch.config import ARCH_IDS, all_archs  # noqa: F401
 
-# Eagerly import every assigned arch so ``import repro.configs`` is enough.
+# Eagerly import every assigned arch so ``import repro_torch.configs`` is
+# enough.
 from repro_torch.configs import (  # noqa: F401
     llama4_maverick_400b_a17b,
     rwkv6_3b,

@@ -38,13 +38,16 @@ def to_device(array, device: torch.device) -> torch.Tensor:
 class HostCopy:
     """Tensors on their way to the host.
 
-    On CUDA the copies into pinned memory are enqueued on the current
-    stream when this object is made — behind the work that produces the
-    tensors and ahead of whatever is enqueued next — and an event marks
-    their end: :meth:`wait` waits for that event only. A plain ``.cpu()``
-    later would queue behind the next step's kernels and serialise the
-    loop. CPU tensors are cloned (later in-place updates must not reach
-    them). The pinned buffers live as long as this object."""
+    On CUDA the copies into pinned memory are enqueued on the tensors'
+    device's current stream when this object is made — behind the work
+    that produces the tensors and ahead of whatever is enqueued next — and
+    an event recorded on that stream marks their end: :meth:`wait` waits
+    for that event only, from any thread (a gateway replica drives its
+    engine from a worker thread, whose current device may be another). A
+    plain ``.cpu()`` later would queue behind the next step's kernels and
+    serialise the loop. CPU tensors are cloned (later in-place updates
+    must not reach them). The pinned buffers live as long as this
+    object."""
 
     def __init__(self, *tensors: torch.Tensor):
         self.event = None
@@ -52,9 +55,9 @@ class HostCopy:
             self.vals = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                          for t in tensors]
             for dst, src in zip(self.vals, tensors):
-                dst.copy_(src, non_blocking=True)
+                dst.copy_(src, non_blocking=True)   # on src's device's stream
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(tensors[0].device))
         else:
             self.vals = [t.clone() for t in tensors]
 

@@ -64,8 +64,17 @@ placement and resize the pool online from the engine's own step records;
 ``autotune=True`` with ``hot_counts`` tracks the SHVS hot-set size H*
 (:class:`~repro_torch.core.autotune.HotSizeController`). A
 :class:`~repro_torch.obs.Telemetry` bundle (``telemetry=``) carries the
-flight-recorder tracer (off by default) and the metrics registry. KV
-migration raises ``NotImplementedError`` naming its ROADMAP item.
+flight-recorder tracer (off by default) and the metrics registry.
+
+**KV migration** (DESIGN.md §18): :meth:`Engine.export_request` quiesces
+one running request at a commit boundary (``flush``) and detaches it as a
+:class:`~repro_torch.engine.migration.KVPayload` (its K/V rows, histogram
+rows from wherever they live, sampling contract and RNG position);
+:meth:`Engine.import_request` queues a payload like any request, and
+admission installs it into its slot instead of prefilling. The importer
+may use the other cache layout or the other sampler placement: the
+decode program cannot tell the request moved, so its stream is the
+never-migrated one (``tests/test_torch_migration.py``).
 """
 from __future__ import annotations
 
@@ -86,8 +95,10 @@ from repro_torch.core.sampling import SamplingParams
 from repro_torch.device import HostCopy, resolve_device, to_device
 from repro_torch.engine.decision_client import (DecisionPlaneClient,
                                                 canonical_sampler_mode)
+from repro_torch.engine.migration import KVPayload, stamp_export
 from repro_torch.engine.paged_cache import (BlockAllocator, PagedCacheConfig,
-                                            init_paged_cache)
+                                            gather_slot_kv, init_paged_cache,
+                                            scatter_slot_kv)
 from repro_torch.engine.request import Request, RequestState
 from repro_torch.engine.scheduler import ChunkTask, Scheduler
 from repro_torch.models.attention import flat_block_indices, scatter_block_kv
@@ -124,11 +135,6 @@ class EngineConfig:
     #                                  registered backend while the engine
     #                                  plane keeps ``algorithm`` (§14)
     stats_window: int = 4096         # stats_log ring size
-
-
-def _unported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP 'Modules to port' item {item})")
 
 
 def _bucket(n: int, mult: int) -> int:
@@ -391,6 +397,8 @@ class Engine:
         self._nonce = np.zeros((B,), np.uint32)
         self._pos = np.zeros((B,), np.int32)
         self._pending: List[_Pending] = []
+        self.migrations_in = 0
+        self.migrations_out = 0
         self.stats_log: Deque[StepRecord] = deque(
             maxlen=engine_cfg.stats_window)
         self._metrics.free_blocks.set(
@@ -719,11 +727,187 @@ class Engine:
             if client is not None:
                 client.close()
 
-    def export_request(self, request_id: int):
-        raise _unported("KV migration (export_request)", 9)
+    # -- KV migration (prefill/decode disaggregation, DESIGN.md §18) --------
+    @locked_api
+    def export_request(self, request_id: int) -> KVPayload:
+        """Quiesce one RUNNING request at the commit boundary and detach
+        it as a :class:`KVPayload` (DESIGN.md §18).
 
-    def import_request(self, payload):
-        raise _unported("KV migration (import_request)", 9)
+        The quiesce point is ``flush()``: every dispatched token is
+        committed (a host-mode ticket in flight is resolved first), so the
+        cache holds ``T`` entries covering the prefilled window plus
+        all-but-the-last committed token, ``last_tokens[slot]`` is
+        ``output[-1]`` (sampled but not yet forwarded), the histograms
+        already count it, and the RNG position is ``len(output)``. The
+        K/V rows are copied on this engine's device, the histogram rows
+        where they live (the host in host placement).
+
+        Raises ``KeyError`` for an unknown/unslotted id and ``ValueError``
+        for a request that cannot migrate (mid-chunked-prefill, no
+        committed output yet, or already finished — the flush may finish
+        it, in which case it retires here and there is nothing to move).
+        """
+        self.flush()
+        req = next((s for s in self.scheduler.slots
+                    if s is not None and s.request_id == request_id), None)
+        if req is None:
+            raise KeyError(
+                f"request {request_id} is not slotted on this engine")
+        if req.state is not RequestState.RUNNING or not req.output:
+            raise ValueError(
+                f"request {request_id} cannot migrate: state={req.state}, "
+                f"{len(req.output)} committed tokens (needs a RUNNING "
+                "request past its first token)")
+        if req.should_stop():
+            raise ValueError(f"request {request_id} already finished")
+        t0 = time.perf_counter()
+        slot = req.slot
+        assert int(self._pos[slot]) == len(req.output), \
+            "quiesce invariant violated: RNG position != committed output"
+        if self._paged:
+            T = int(self._slot_len[slot])
+            k, v = gather_slot_kv(self.cache, self.alloc.owned[slot], T,
+                                  self.pcfg)
+            self.alloc.export_slot(slot)
+            self._slot_len[slot] = 0
+        else:
+            if set(self.cache) != {"k", "v", "len", "pos"}:
+                raise RuntimeError(
+                    "KV migration supports plain attention caches only "
+                    f"(leaves: {sorted(self.cache)})")
+            T = int(self.cache["len"][slot])
+            k = self.cache["k"][:, slot, :T].clone()
+            v = self.cache["v"][:, slot, :T].clone()
+        payload = KVPayload(
+            request_id=req.request_id, prompt=list(req.prompt),
+            output=list(req.output), max_new_tokens=req.max_new_tokens,
+            sampling=req.sampling, eos_token=req.eos_token,
+            prompt_offset=req.prompt_offset,
+            arrival_time=req.arrival_time, kv_len=T, k=k, v=v,
+            prompt_counts=self.pstate.prompt_counts[slot].clone(),
+            output_counts=self.pstate.output_counts[slot].clone(),
+            last_token=int(req.output[-1]), next_pos=len(req.output),
+            source=f"engine@{id(self):x}", request=req)
+        # detach: frees the slot (on_free releases any remaining block
+        # claim and resets the SlotParams row) without re-queueing
+        self.scheduler.remove(req)
+        req.kv_payload = payload
+        self.migrations_out += 1
+        self._metrics.migrations_out.inc()
+        if self._paged:
+            self._metrics.free_blocks.set(float(self.alloc.num_free))
+        stamp_export(payload)
+        if self.tracer.enabled:
+            self.tracer.add("kv_migrate", t0, payload.exported_at,
+                            name=f"export#{req.request_id}",
+                            request_id=int(req.request_id), kv_len=T,
+                            bytes=payload.nbytes, direction="out")
+        return payload
+
+    @locked_api
+    def import_request(self, payload: KVPayload) -> Request:
+        """Admit a migrated request carrying its KV (DESIGN.md §18): the
+        payload rides through the normal admission path (queueing, slot
+        assignment, block gating) and ``_admit`` installs it directly —
+        no re-prefill. Returns the request object that will stream here."""
+        self._validate_payload(payload)
+        req = payload.request if payload.request is not None \
+            else payload.to_request()
+        req.kv_payload = payload
+        req.slot = -1
+        req.state = RequestState.WAITING
+        req.prompt_pos = 0
+        self.submit([req])
+        self._metrics.pending_imports.set(float(self._pending_imports()))
+        return req
+
+    def _pending_imports(self) -> int:
+        return sum(1 for r in self.scheduler.waiting
+                   if r.kv_payload is not None)
+
+    def _validate_payload(self, p: KVPayload) -> None:
+        L = self.cfg.num_layers
+        kv, hd = self.cfg.num_kv_heads, self.cfg.resolved_head_dim
+        want = (L, p.kv_len, kv, hd)
+        if tuple(p.k.shape) != want or tuple(p.v.shape) != want:
+            raise ValueError(
+                f"payload KV shape {tuple(p.k.shape)} does not match this "
+                f"engine's model ({want})")
+        if tuple(p.prompt_counts.shape) != (self.cfg.vocab_size,):
+            raise ValueError(
+                f"payload vocab {p.prompt_counts.shape[0]} != "
+                f"{self.cfg.vocab_size}")
+        if p.kv_len + 1 > self.ecfg.max_seq_len:
+            raise ValueError(
+                f"payload of {p.kv_len} KV entries cannot decode within "
+                f"max_seq_len={self.ecfg.max_seq_len}")
+        if p.next_pos != len(p.output) or not p.output:
+            raise ValueError("corrupt payload: RNG position != output")
+
+    def _install_imports(self, carried: List[Request]) -> None:
+        """Install migrated requests' state into their assigned slots —
+        the import half of the migration seam (DESIGN.md §18), in place of
+        ``_admit``'s prefill: K/V copied bitwise into freshly allocated
+        blocks (or the slot's slab rows) on this engine's device, the
+        histogram rows into their home here (host or device, whatever the
+        exporter's placement was), the sampling contract into the slot's
+        row, and the RNG position resumed at ``len(output)``."""
+        d, home = self.device, self._pstate_home
+        for r in carried:
+            p: KVPayload = r.kv_payload
+            # consumed on install: a later preemption of this request
+            # falls back to recompute-on-resume over prompt+output
+            r.kv_payload = None
+            t0 = time.perf_counter()
+            if self.tracer.enabled and p.exported_at:
+                self.tracer.add("handoff_wait", p.exported_at, t0,
+                                name=f"handoff#{r.request_id}",
+                                request_id=int(r.request_id),
+                                kv_len=int(p.kv_len))
+            slot, T = r.slot, int(p.kv_len)
+            if self._paged:
+                self.alloc.release(slot)       # stale claims (defensive)
+                self.alloc.ensure(slot, T)
+                self._slot_len[slot] = T
+                self._push_block_table()
+                scatter_slot_kv(self.cache, self.alloc.owned[slot], p.k, p.v,
+                                self.pcfg)
+            else:
+                for name, rows in (("k", p.k), ("v", p.v)):
+                    leaf = self.cache[name]
+                    leaf[:, slot, :T] = rows.to(d, leaf.dtype,
+                                                non_blocking=True)
+            self.cache["len"][slot] = T
+            self.pstate.prompt_counts[slot] = p.prompt_counts.to(home)
+            self.pstate.output_counts[slot] = p.output_counts.to(home)
+            self.last_tokens = self.last_tokens.index_put(
+                (to_device(np.array([slot]), d),),
+                to_device(np.array([p.last_token], np.int32), d))
+            self._sp.set_row(slot, r.sampling)
+            self._nonce[slot] = np.uint32(r.request_id)
+            self._pos[slot] = int(p.next_pos)
+            r.handoff_count += 1
+            self.migrations_in += 1
+            self._metrics.migrations_in.inc()
+            if self.tracer.enabled:
+                self.tracer.add("kv_migrate", t0, time.perf_counter(),
+                                name=f"import#{r.request_id}",
+                                request_id=int(r.request_id), kv_len=T,
+                                bytes=p.nbytes, direction="in")
+        if self._paged:
+            self._metrics.free_blocks.set(float(self.alloc.num_free))
+        self._metrics.pending_imports.set(float(self._pending_imports()))
+
+    @locked_api
+    def migration_stats(self) -> dict:
+        """Per-engine disaggregation counters for ``GET /v1/stats`` —
+        free-block headroom and migration flow (DESIGN.md §18)."""
+        return {
+            "free_blocks": self.alloc.num_free if self._paged else None,
+            "migrations_in": self.migrations_in,
+            "migrations_out": self.migrations_out,
+            "pending_imports": self._pending_imports(),
+        }
 
     # -- commit ---------------------------------------------------------------
     def _resolve(self, ent: _Pending) -> None:
@@ -886,7 +1070,18 @@ class Engine:
         next token at output position len(output): the (request, position)
         RNG keying continues its stream. The draw runs on the device in
         either placement; in host mode the rows' histograms then cross to
-        the host (this admission waits for the prefill anyway)."""
+        the host (this admission waits for the prefill anyway).
+
+        A *migrated* request (carrying a :class:`KVPayload`, §18) skips
+        the prefill: its KV, histogram rows and RNG position are installed
+        bitwise into the assigned slot (:meth:`_install_imports`)."""
+        carried = [r for r in new_requests if r.kv_payload is not None]
+        if carried:
+            self._install_imports(carried)
+            cids = {id(r) for r in carried}
+            new_requests = [r for r in new_requests if id(r) not in cids]
+            if not new_requests:
+                return
         t_pf = time.perf_counter()
         self._trace_queue_wait(new_requests, t_pf)
         first, rows_cache, rows_pstate, lens, bases, rids = \

@@ -148,12 +148,12 @@ def gather_slot_kv(cache: dict, blocks: List[int], length: int,
                    pcfg: PagedCacheConfig
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ONE slot's contiguous ``(L, length, kv, hd)`` K/V from its block
-    list, copied to the host (the read of a KV-migration export). Values
-    are copied bitwise."""
+    list (the read of a KV-migration export): a bitwise copy on the pool's
+    device, which later writes to the blocks do not reach."""
     pool = cache["k_pool"]
     L, trail = pool.shape[0], tuple(pool.shape[3:])
     if length <= 0 or not blocks:
-        z = torch.zeros((L, 0) + trail, dtype=pool.dtype)
+        z = torch.zeros((L, 0) + trail, dtype=pool.dtype, device=pool.device)
         return z, z.clone()
     assert len(blocks) * pcfg.block_size >= length, \
         "block list does not cover the requested length"
@@ -161,7 +161,7 @@ def gather_slot_kv(cache: dict, blocks: List[int], length: int,
 
     def gather(p):
         g = p[:, idx]                          # (L, nb, bs, kv, hd)
-        return g.reshape(L, -1, *trail)[:, :length].cpu()
+        return g.reshape(L, -1, *trail)[:, :length].contiguous()
 
     return gather(cache["k_pool"]), gather(cache["v_pool"])
 

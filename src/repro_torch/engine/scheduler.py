@@ -152,7 +152,7 @@ class Scheduler:
         :meth:`preempt` (``on_free`` releases KV blocks and resets the
         sampling-contract row) but leaves the request's destination to the
         caller: committed output survives on the request object, and the
-        exported :class:`~repro.engine.migration.KVPayload` carries
+        exported :class:`~repro_torch.engine.migration.KVPayload` carries
         everything a target engine needs to resume."""
         slot = victim.slot
         assert 0 <= slot < self.num_slots and self.slots[slot] is victim, \

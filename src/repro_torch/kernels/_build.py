@@ -25,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import List, Optional
 
@@ -40,6 +41,11 @@ COMPILE_FLAGS = ARCH + ["-O3", "-std=c++17", "-fmad=false",
 BUILD_LOG: List[str] = []
 
 _LIB: Optional[ctypes.CDLL] = None
+#: serialises the first build and load: engines on several threads (the
+#: gateway's replicas) may reach their first launch together
+_LIB_LOCK = threading.Lock()
+#: guards the wrappers' launch counters (read-modify-write from threads)
+COUNT_LOCK = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -108,13 +114,15 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded kernel library, built at first use (once, whichever
+    thread gets there first; the others wait for it)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        _LIB = lib
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            _LIB = lib
     return _LIB
 
 

@@ -140,5 +140,6 @@ def fused_sample(logits, counts_p, counts_o, repetition, presence, frequency,
         rc = fn(*args, B, V, Vp, K, force, _workspace(dev, B, Vp, K, path),
                 _build.stream(dev))
     _build.check_rc(NAME, rc)
-    launches += 1
+    with _build.COUNT_LOCK:     # replicas launch from their own threads
+        launches += 1
     return tokens, exact, alpha, kept

@@ -76,5 +76,6 @@ def gumbel_argmax(z, seed: int):
         rc = _FN(zp, int(seed) & 0xFFFFFFFF, tokens.data_ptr(), B, V,
                  _build.stream(dev))
     _build.check_rc(NAME, rc)
-    launches += 1
+    with _build.COUNT_LOCK:     # replicas launch from their own threads
+        launches += 1
     return tokens

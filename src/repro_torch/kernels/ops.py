@@ -9,8 +9,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels import (fused_kernel, gumbel_kernel, penalty_kernel,
-                                 ref, shvs_kernel)
+from repro_torch.kernels import (_build, fused_kernel, gumbel_kernel,
+                                 penalty_kernel, ref, shvs_kernel)
 
 KERNELS = (penalty_kernel, shvs_kernel, fused_kernel, gumbel_kernel)
 
@@ -21,8 +21,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    with _build.COUNT_LOCK:
+        for k in KERNELS:
+            k.launches = 0
 
 
 def fused_penalty_scale(logits, counts_p, counts_o, repetition, presence,

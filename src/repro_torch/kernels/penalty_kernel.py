@@ -43,5 +43,6 @@ def penalty_scale(logits, counts_p, counts_o, repetition, presence,
     with torch.cuda.device(dev):
         rc = fn(*args, B, V, _build.stream(dev))
     _build.check_rc(NAME, rc)
-    launches += 1
+    with _build.COUNT_LOCK:     # replicas launch from their own threads
+        launches += 1
     return out

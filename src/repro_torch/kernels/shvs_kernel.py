@@ -57,5 +57,6 @@ def shvs_masses(z, hot_mask):
                 _build.ptr(hot_mask, "hot_mask", torch.bool, (V,), dev),
                 *(o.data_ptr() for o in outs), B, V, _build.stream(dev))
     _build.check_rc(NAME, rc)
-    launches += 1
+    with _build.COUNT_LOCK:     # replicas launch from their own threads
+        launches += 1
     return outs[0], outs[1], outs[2], outs[3]

@@ -25,8 +25,23 @@ layout of ``models.bridge.save_npz`` (the reference's ``Model.init`` tree
 goes there with ``save_npz(path, jax.tree_util.tree_map(np.asarray,
 params))``). ``--device`` defaults to ``cuda`` and fails without a card.
 
-Flags of the reference driver that the port does not serve yet (gateway,
-disaggregation) raise ``NotImplementedError`` naming their ROADMAP item.
+Prefill/decode disaggregation and the gateway (DESIGN.md §16, §18):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --disaggregate [--cache paged]
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --gateway --replicas 2 [--disaggregate] [--http-port 8100]
+    curl -N localhost:8100/v1/completions -d \
+        '{"prompt": "the quick brown fox", "max_tokens": 16, "seed": 7}'
+
+``--disaggregate`` alone drives the synthetic batch through a
+``HandoffScheduler``: one prefill engine and one decode engine, every
+request migrating its KV at its first committed token. ``--gateway``
+serves an OpenAI-style completions endpoint (SSE streaming) over
+``--replicas`` engines until SIGINT/SIGTERM, then drains; with
+``--disaggregate`` the fleet splits into ``--prefill-replicas`` prefill
+and ``--decode-replicas`` decode replicas. Every replica computes with
+the same parameter tensors (one init, shared read-only).
 """
 from __future__ import annotations
 
@@ -54,9 +69,10 @@ def build_engine(arch: str, reduced: bool, algorithm: str, batch: int,
                  stages: int = 1, microbatches: int = 0, samplers: int = 2,
                  sampler_mode: str = None, pool_algorithm: str = None,
                  telemetry: Telemetry = None, weights: str = None,
-                 k_cap: int = 256, device="cuda"):
-    """An engine over ``arch`` on ``device``: a seeded random init, or the
-    tree in ``weights`` (an npz of ``models.bridge.save_npz``). With
+                 k_cap: int = 256, device="cuda", params=None):
+    """An engine over ``arch`` on ``device``: a seeded random init, the
+    tree in ``weights`` (an npz of ``models.bridge.save_npz``), or
+    ``params`` (a tree on ``device``, shared read-only by replicas). With
     ``stages > 1`` or ``microbatches`` a ``PipelineEngine`` (sampling in
     the host pool unless ``sampler_mode`` says otherwise), else an
     ``Engine`` (sampling on the device unless it says otherwise)."""
@@ -64,8 +80,9 @@ def build_engine(arch: str, reduced: bool, algorithm: str, batch: int,
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
-    params = load_npz(weights, dev) if weights else \
-        Model(cfg).init(seed=seed, device=dev)
+    if params is None:
+        params = load_npz(weights, dev) if weights else \
+            Model(cfg).init(seed=seed, device=dev)
     common = dict(max_batch=batch, max_seq_len=max_seq, algorithm=algorithm,
                   shvs=SHVSConfig(hot_size=min(1024, cfg.vocab_size // 4)),
                   k_cap=min(k_cap, cfg.vocab_size), seed=seed, cache=cache,
@@ -172,10 +189,139 @@ def print_pipeline_report(eng: PipelineEngine) -> None:
     print(f"per-stage utilization: {util}")
 
 
-_UNPORTED = {"gateway": ("--gateway", 3), "disaggregate": ("--disaggregate", 2)}
+def _engine_kwargs(args) -> dict:
+    """``build_engine``'s keyword arguments from the command line's
+    flags, all but the telemetry."""
+    return dict(arch=args.arch, reduced=args.reduced,
+                algorithm=args.algorithm, batch=args.batch,
+                max_seq=args.max_seq, overlap=args.overlap,
+                prompt_chunk=args.prompt_chunk, cache=args.cache,
+                block_size=args.block_size, num_blocks=args.num_blocks,
+                stages=args.stages, microbatches=args.microbatches,
+                samplers=args.samplers, sampler_mode=args.sampler_mode,
+                pool_algorithm=args.pool_algorithm, weights=args.weights,
+                device=args.device)
 
 
-def main(argv=None) -> None:
+def _replicas(args, n: int) -> list:
+    """``n`` engines of the command line's flags over ONE parameter tree (made
+    by the first, shared read-only by the rest): seeded streams then match
+    across replicas."""
+    engines = []
+    for _ in range(n):
+        engines.append(build_engine(
+            **_engine_kwargs(args), telemetry=trace_telemetry(args.trace_out),
+            params=engines[0].params if engines else None))
+    return engines
+
+
+def _check_single_stage(args) -> None:
+    if args.stages > 1 or args.microbatches:
+        raise ValueError(
+            "--disaggregate needs single-stage engines: the pipeline "
+            "engine shards its KV cache per stage and has no migration "
+            "seam (DESIGN.md §18)")
+
+
+def build_fleet(args):
+    """``--replicas`` engines over one shared parameter tree, wrapped in a
+    :class:`~repro_torch.gateway.fleet.ReplicaFleet`. With
+    ``--disaggregate`` the fleet is P prefill-role + D decode-role
+    replicas (DESIGN.md §18): ``GatewayServer`` builds its router with
+    ``Router.for_fleet``, which installs the decode-placement hook on
+    every prefill replica, so each admitted prompt prefills on one
+    instance and carries its KV to a decode instance at the first
+    committed token."""
+    from repro_torch.gateway import ReplicaFleet
+    roles = None
+    if args.disaggregate:
+        _check_single_stage(args)
+        n_prefill = args.prefill_replicas or max(1, args.replicas // 2)
+        n_decode = args.decode_replicas or max(1, args.replicas - n_prefill)
+        roles = ["prefill"] * n_prefill + ["decode"] * n_decode
+    n = len(roles) if roles else args.replicas
+    return ReplicaFleet(_replicas(args, n), capacity=args.capacity,
+                        roles=roles)
+
+
+def run_gateway(args) -> None:
+    """Boot the gateway and serve until SIGINT/SIGTERM, then drain: stop
+    admissions, let in-flight streams finish, close every replica."""
+    import asyncio
+    import signal
+
+    from repro_torch.gateway import GatewayServer
+
+    async def _serve() -> None:
+        gw = GatewayServer(build_fleet(args), codec=args.codec,
+                           trace=bool(args.trace_out))
+        await gw.serve(args.http_host, args.http_port)
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
+        if gw.fleet.disaggregated:
+            shape = (f"{len(gw.fleet.prefill_replicas)} prefill + "
+                     f"{len(gw.fleet.decode_replicas)} decode replicas")
+        else:
+            shape = f"{len(gw.fleet.replicas)} replica(s)"
+        print(f"gateway listening on http://{gw.host}:{gw.port} "
+              f"({shape} on {args.device}, capacity {args.capacity}, "
+              f"codec '{args.codec}') — Ctrl-C drains and exits",
+              flush=True)
+        await stop.wait()
+        print("draining gateway ...", flush=True)
+        await gw.shutdown()
+        for rep in gw.fleet.replicas:
+            print(f"  {rep.name}: {rep.stats()}")
+        print("gateway closed", flush=True)
+        if args.trace_out:
+            # after shutdown: every replica drained, every span recorded
+            sources = [("gateway", gw.tracer)] + [
+                (f"replica:{rep.name}", rep.engine.tracer)
+                for rep in gw.fleet.replicas]
+            n = write_chrome_trace(args.trace_out, sources)
+            print(f"wrote {n} trace events to {args.trace_out} "
+                  f"(chrome://tracing / ui.perfetto.dev)")
+
+    asyncio.run(_serve())
+
+
+def run_disaggregated_batch(args, stop_sequences=()):
+    """``--disaggregate`` without ``--gateway``: the synthetic batch
+    through a :class:`~repro_torch.engine.handoff.HandoffScheduler` — one
+    prefill engine, one decode engine over shared parameters, every
+    request migrating its KV at its first committed token (DESIGN.md
+    §18). Streams equal a single engine's. Returns (requests, report,
+    the two engines' ``migration_stats()``)."""
+    from repro_torch.engine import HandoffScheduler
+    _check_single_stage(args)
+    prefill_eng, decode_eng = _replicas(args, 2)
+    hs = HandoffScheduler(prefill_eng, decode_eng)
+    reqs = synth_requests(args.requests, prefill_eng.cfg.vocab_size,
+                          args.max_new, long_prompts=args.long_prompts,
+                          seed=args.seed, greedy=args.greedy,
+                          stop_sequences=stop_sequences)
+    t0 = time.perf_counter()
+    for r in reqs:
+        r.arrival_time = t0
+    n_events = sum(1 for _ in hs.generate(reqs))
+    if prefill_eng.device.type == "cuda":
+        torch.cuda.synchronize(prefill_eng.device)
+    rep = latency_report(reqs, t0, time.perf_counter())
+    rep.update(events=n_events, migrated=hs.migrated)
+    stats = [prefill_eng.migration_stats(), decode_eng.migration_stats()]
+    hs.close()
+    if args.trace_out:
+        n = write_chrome_trace(args.trace_out,
+                               [("prefill", prefill_eng.tracer),
+                                ("decode", decode_eng.tracer)])
+        print(f"wrote {n} trace events to {args.trace_out}")
+    return reqs, rep, stats
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The serve flags (``argv`` defaults to the command line)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCH_IDS), default="smollm-360m")
     ap.add_argument("--reduced", action="store_true",
@@ -240,28 +386,57 @@ def main(argv=None) -> None:
     ap.add_argument("--weights", default=None, metavar="PATH.npz",
                     help="weights in the layout of models.bridge.save_npz "
                          "instead of the seeded random init")
-    # the reference driver's flags the port does not serve: refused
-    ap.add_argument("--gateway", action="store_true", default=None)
-    ap.add_argument("--disaggregate", action="store_true", default=None)
-    args = ap.parse_args(argv)
-    for dest, (flag, item) in _UNPORTED.items():
-        val = getattr(args, dest)
-        if val is not None:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP 'Modules to port' item "
-                f"{item})")
+    ap.add_argument("--gateway", action="store_true",
+                    help="serve HTTP/SSE completions over a replica fleet "
+                         "instead of a synthetic batch (SIGINT drains)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="gateway engine replicas (shared parameters)")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="prefill/decode disaggregation: each request "
+                         "prefills on one engine and migrates its KV to a "
+                         "decode engine at its first committed token "
+                         "(with --gateway: split the fleet into roles)")
+    ap.add_argument("--prefill-replicas", type=int, default=0,
+                    help="prefill-role replicas under --gateway "
+                         "--disaggregate (0 = replicas // 2)")
+    ap.add_argument("--decode-replicas", type=int, default=0,
+                    help="decode-role replicas under --gateway "
+                         "--disaggregate (0 = replicas - prefill)")
+    ap.add_argument("--http-host", default="127.0.0.1")
+    ap.add_argument("--http-port", type=int, default=8100,
+                    help="gateway port (0 = an ephemeral one, printed)")
+    ap.add_argument("--capacity", type=int, default=16,
+                    help="per-replica open-request bound (429 beyond it)")
+    ap.add_argument("--codec", default="byte",
+                    help="registered text codec of the gateway")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
 
     stop_sequences = tuple(
         tuple(int(t) for t in s.split(",") if t.strip()) for s in args.stop)
-    eng = build_engine(args.arch, args.reduced, args.algorithm, args.batch,
-                       args.max_seq, overlap=args.overlap,
-                       prompt_chunk=args.prompt_chunk, cache=args.cache,
-                       block_size=args.block_size, num_blocks=args.num_blocks,
-                       stages=args.stages, microbatches=args.microbatches,
-                       samplers=args.samplers, sampler_mode=args.sampler_mode,
-                       pool_algorithm=args.pool_algorithm,
-                       telemetry=trace_telemetry(args.trace_out),
-                       weights=args.weights, device=args.device)
+    if args.gateway:
+        run_gateway(args)
+        return
+    if args.disaggregate:
+        reqs, rep, stats = run_disaggregated_batch(args, stop_sequences)
+        print(f"\nserved {rep['requests']} requests, {rep['tokens']} tokens "
+              f"in {rep['seconds']:.2f}s ({rep['tok_per_s']:.1f} tok/s) "
+              f"[{args.algorithm}, disaggregated prefill/decode, "
+              f"{rep['migrated']}/{len(reqs)} requests migrated, "
+              f"{args.cache}, {args.device}]")
+        print(f"TTFT p50={rep['ttft_p50_ms']:.1f}ms  TPOT p50="
+              f"{rep['tpot_p50_ms']:.1f}ms ({rep['events']} events)")
+        print(f"migration stats: prefill {stats[0]}, decode {stats[1]}")
+        for r in sorted(reqs, key=lambda r: r.request_id):
+            print(f"  req {r.request_id:3d}: {len(r.output):3d} tokens, "
+                  f"handoffs={r.handoff_count}, "
+                  f"finish_reason={r.finish_reason}")
+        return
+    eng = build_engine(**_engine_kwargs(args),
+                       telemetry=trace_telemetry(args.trace_out))
     reqs = synth_requests(args.requests, eng.cfg.vocab_size, args.max_new,
                           long_prompts=args.long_prompts, seed=args.seed,
                           greedy=args.greedy, stop_sequences=stop_sequences)

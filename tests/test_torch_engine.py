@@ -115,15 +115,6 @@ def test_fused_engine_at_k_cap_2048_matches_reference():
         [(r.output, r.finish_reason) for r in jreqs]
 
 
-@pytest.mark.parametrize("method,item", [
-    ("export_request", "item 9"), ("import_request", "item 9")])
-def test_unported_engine_modes_raise(weights, method, item):
-    _, _, tp = weights
-    eng = TEngine(tget(ARCH).reduced(), tp, TECfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(eng, method)(0)
-
-
 def test_serve_driver_runs_on_cpu():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(

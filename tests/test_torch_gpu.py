@@ -437,3 +437,106 @@ def test_host_pool_tokens_equal_across_worker_counts():
         np.testing.assert_array_equal(res.tokens, out[0].tokens)
         assert torch.equal(res.state.output_counts, out[0].state.output_counts)
     assert out[0].active_rows == B
+
+
+def _bf16_engine(cfg, params, dev, cache, **kw):
+    return Engine(cfg, params, EngineConfig(
+        max_batch=4, max_seq_len=64, algorithm="shvs",
+        shvs=SHVSConfig(hot_size=128), k_cap=64, cache=cache, block_size=16,
+        **kw), device=dev)
+
+
+@pytest.mark.parametrize("cache", ["contiguous", "paged"])
+def test_kv_payload_bf16_roundtrip_on_cuda_is_bitwise(cache):
+    """A bf16 engine on the card exports a request mid-decode: the
+    payload's K/V are the cache rows bit for bit, survive ``to_bytes`` →
+    ``from_bytes`` bit for bit, and after the import the target's cache
+    and histogram rows are the payload's bits."""
+    from repro_torch.engine import KVPayload
+    from repro_torch.engine.paged_cache import gather_slot_kv
+    dev = _cuda()
+    cfg = dataclasses.replace(get_arch("smollm-360m").reduced(),
+                              dtype="bfloat16")
+    params = Model(cfg).init(seed=4, device=dev)
+    a, b = (_bf16_engine(cfg, params, dev, cache) for _ in range(2))
+    bits = lambda t: t.contiguous().view(torch.int16)
+
+    def rows(eng, slot, T):
+        if cache == "paged":
+            return gather_slot_kv(eng.cache, eng.alloc.owned[slot], T,
+                                  eng.pcfg)
+        return eng.cache["k"][:, slot, :T], eng.cache["v"][:, slot, :T]
+
+    try:
+        reqs = synth_requests(3, cfg.vocab_size, 12, seed=5)
+        a.submit(reqs)
+        while len(reqs[1].output) < 3:
+            a.step()
+        a.flush()
+        r = reqs[1]
+        slot, T = r.slot, int(a.cache["len"][r.slot])
+        src_k, src_v = (t.clone() for t in rows(a, slot, T))
+        p = a.export_request(r.request_id)
+        assert p.k.dtype == torch.bfloat16 and p.kv_len == T
+        assert torch.equal(bits(p.k), bits(src_k))
+        assert torch.equal(bits(p.v), bits(src_v))
+        q = KVPayload.from_bytes(p.to_bytes())
+        assert torch.equal(bits(q.k), bits(p.k).cpu())
+        assert torch.equal(bits(q.v), bits(p.v).cpu())
+        assert torch.equal(q.output_counts, p.output_counts.cpu())
+        landed = b.import_request(q)
+        b.step()              # admission installs the payload, then decodes
+        b.flush()
+        got_k, got_v = rows(b, landed.slot, T)
+        assert torch.equal(bits(got_k), bits(q.k).to(dev))
+        assert torch.equal(bits(got_v), bits(q.v).to(dev))
+        # the histograms: the payload's rows plus the one token decoded here
+        assert torch.equal(b.pstate.prompt_counts[landed.slot].cpu(),
+                           q.prompt_counts)
+        want = q.output_counts.clone()
+        for t in landed.output[len(q.output):]:
+            want[t] += 1
+        assert len(landed.output) == len(q.output) + 1
+        assert torch.equal(b.pstate.output_counts[landed.slot].cpu(), want)
+    finally:
+        a.close()
+        b.close()
+
+
+@pytest.mark.parametrize("cache,algorithm,chunk", [
+    ("contiguous", "shvs", 0), ("paged", "gumbel", 32)])
+def test_handoff_identity_on_cuda(cache, algorithm, chunk):
+    """The handoff scheduler on the card (bf16, filtered sampling and
+    greedy rows) gives the never-migrated engine's streams."""
+    from repro_torch.engine import HandoffScheduler
+    dev = _cuda()
+    cfg = dataclasses.replace(get_arch("smollm-360m").reduced(),
+                              dtype="bfloat16")
+    params = Model(cfg).init(seed=4, device=dev)
+    kw = dict(algorithm=algorithm, prompt_chunk=chunk)
+
+    def batch():
+        reqs = synth_requests(4, cfg.vocab_size, 10, seed=5,
+                              long_prompts=True) + \
+            synth_requests(4, cfg.vocab_size, 10, rng_seed=1, greedy=True)
+        for i, r in enumerate(reqs):
+            r.request_id = i
+        return reqs
+
+    eng = Engine(cfg, params, EngineConfig(
+        max_batch=8, max_seq_len=256, shvs=SHVSConfig(hot_size=128),
+        k_cap=64, cache=cache, **kw), device=dev)
+    single = batch()
+    list(eng.generate(single))
+    eng.close()
+    hs = HandoffScheduler(*(Engine(cfg, params, EngineConfig(
+        max_batch=8, max_seq_len=256, shvs=SHVSConfig(hot_size=128),
+        k_cap=64, cache=cache, **kw), device=dev) for _ in range(2)))
+    moved = batch()
+    try:
+        list(hs.generate(moved))
+    finally:
+        hs.close()
+    assert hs.migrated == len(moved)
+    assert [(r.output, r.finish_reason) for r in moved] == \
+        [(r.output, r.finish_reason) for r in single]

@@ -7,7 +7,10 @@ engine, the reference's weights bridged across (reduced smollm-360m, f32).
   pool carries one trash block where the reference drops writes);
 * ``prefill_chunk`` logits and caches allclose (rtol/atol 1e-5), contiguous
   and paged;
-* ``BlockAllocator`` gives the same results on the same event sequence;
+* ``BlockAllocator`` gives the same results on the same event sequence,
+  and keeps the reference's invariants (hypothesis): free + live
+  partitions the pool, a failing ``ensure`` mutates nothing, and KV
+  migration's export/import round trips conserve both pools;
 * engine streams (tokens and finish reasons) equal the reference engine's
   over {contiguous, paged} x {monolithic, chunked} x {overlapped,
   sequential} for ``shvs`` and ``gumbel``, and on a pool that forces
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.config import SamplingConfig as JS, SHVSConfig as JSH, get_arch
 from repro.engine import paged_cache as jpc
@@ -267,6 +271,120 @@ def test_block_allocator_event_sequences_match_reference():
         np.testing.assert_array_equal(ta.table(4), ja.table(4))
         assert (ja.num_free, ja.num_live) == (ta.num_free, ta.num_live)
     assert errors > 0                    # exhaustion and over-length hit
+
+
+def _pool_partitions(alloc, num_blocks):
+    live = [b for owned in alloc.owned for b in owned]
+    assert len(live) == len(set(live)), "double-allocated block"
+    assert not set(live) & set(alloc.free), "block both live and free"
+    assert len(live) + len(alloc.free) == num_blocks, "pool leaked or grew"
+
+
+@given(st.data())
+@settings(max_examples=40, deadline=None)
+def test_block_allocator_invariants(data):
+    """Mirror of the reference's property: arbitrary allocate/free
+    interleavings never double-allocate a block, free + live always
+    partitions the pool, and exhaustion is reported deterministically and
+    atomically (a failing ensure mutates nothing) — with the reference's
+    allocator driven in lockstep to the same state."""
+    num_blocks = data.draw(st.integers(1, 24))
+    block_size = data.draw(st.sampled_from([1, 2, 4, 16]))
+    max_per_seq = data.draw(st.integers(1, 12))
+    batch = data.draw(st.integers(1, 5))
+    kw = dict(block_size=block_size, num_blocks=num_blocks,
+              max_blocks_per_seq=max_per_seq)
+    alloc = tpc.BlockAllocator(tpc.PagedCacheConfig(**kw), batch)
+    ref = jpc.BlockAllocator(jpc.PagedCacheConfig(**kw), batch)
+    lengths = [0] * batch
+    for _ in range(data.draw(st.integers(1, 40))):
+        slot = data.draw(st.integers(0, batch - 1))
+        if data.draw(st.booleans()):
+            target = lengths[slot] + data.draw(st.integers(0, 3 * block_size))
+            need = alloc.blocks_needed(target)
+            grow = need - len(alloc.owned[slot])
+            must_fail = need > max_per_seq or grow > len(alloc.free)
+            free_before = list(alloc.free)
+            owned_before = [list(b) for b in alloc.owned]
+            try:
+                alloc.ensure(slot, target)
+                assert not must_fail, "ensure succeeded past exhaustion"
+                lengths[slot] = max(lengths[slot], target)
+            except RuntimeError:
+                assert must_fail, "spurious exhaustion report"
+                assert alloc.free == free_before, "failed ensure mutated free"
+                assert alloc.owned == owned_before, \
+                    "failed ensure leaked a partial allocation"
+            try:
+                ref.ensure(slot, target)
+            except RuntimeError:
+                assert must_fail
+        else:
+            alloc.release(slot)
+            ref.release(slot)
+            lengths[slot] = 0
+        _pool_partitions(alloc, num_blocks)
+        for s in range(batch):
+            assert len(alloc.owned[s]) == alloc.blocks_needed(lengths[s]) \
+                or lengths[s] == 0
+        assert (alloc.free, alloc.owned) == (ref.free, ref.owned)
+
+
+@given(st.data())
+@settings(max_examples=40, deadline=None)
+def test_block_allocator_migrate_roundtrip_conserves_pools(data):
+    """Mirror of the reference's property: ``export_slot`` hands back
+    every owned block exactly once and returns them all to the source free
+    list; the importer consumes exactly ``blocks_needed(T)`` fresh blocks
+    on an independent pool, and releasing the landed slot restores it — an
+    arbitrary interleaving of migrations conserves both allocators."""
+    num_blocks = data.draw(st.integers(2, 24))
+    block_size = data.draw(st.sampled_from([1, 2, 4, 16]))
+    batch = data.draw(st.integers(1, 4))
+    pcfg = tpc.PagedCacheConfig(block_size=block_size,
+                                num_blocks=num_blocks,
+                                max_blocks_per_seq=num_blocks)
+    src, dst = tpc.BlockAllocator(pcfg, batch), tpc.BlockAllocator(pcfg,
+                                                                   batch)
+    lengths = {}
+    for slot in range(batch):
+        target = data.draw(st.integers(0, 3 * block_size))
+        if target == 0:
+            continue
+        try:
+            src.ensure(slot, target)
+            lengths[slot] = target
+        except RuntimeError:
+            pass
+        _pool_partitions(src, num_blocks)
+
+    for slot in data.draw(st.permutations(sorted(lengths))):
+        T = lengths[slot]
+        owned_before = list(src.owned[slot])
+        src_free_before = len(src.free)
+        blocks = src.export_slot(slot)
+        assert blocks == owned_before
+        assert len(blocks) == len(set(blocks)) == src.blocks_needed(T)
+        assert not src.owned[slot]
+        assert len(src.free) == src_free_before + len(blocks)
+        _pool_partitions(src, num_blocks)
+        # the importer allocates FRESH ids on its own pool — block ids
+        # never travel with the payload
+        dst_free_before = len(dst.free)
+        try:
+            dst.ensure(slot, T)
+        except RuntimeError:
+            _pool_partitions(dst, num_blocks)
+            continue
+        assert len(dst.owned[slot]) == dst.blocks_needed(T)
+        assert len(dst.free) == dst_free_before - dst.blocks_needed(T)
+        _pool_partitions(dst, num_blocks)
+        if data.draw(st.booleans()):        # decode finishes → release
+            dst.release(slot)
+            assert len(dst.free) == dst_free_before
+            _pool_partitions(dst, num_blocks)
+    # after every migration the source pool is fully free again
+    assert sorted(src.free) == list(range(num_blocks))
 
 
 # ---------------------------------------------------------------------------
