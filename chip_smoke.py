@@ -30,8 +30,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    padded V at B = 8, V = 49152, and the padded V at B = 8, V = 151936, on
    the path the kernel picks and forced onto its global-workspace path,
    both equal to each other and to the plain version, each timed;
-3. hold the port's CUDA forward against its CPU forward on a small f32
-   model (the CPU forward is what the tests hold against the reference);
+3. hold the port's CUDA forward against its CPU forward on small f32
+   models of every served family (the CPU forward is what the tests hold
+   against the reference): smollm-360m, granite-moe-1b-a400m at a
+   capacity factor of 0.5 (the phase prints the pairs dropped, equal on
+   both devices), llama4-maverick-400b-a17b (the shared expert),
+   rwkv6-3b and zamba2-1.2b, logits and every cache leaf;
 4. serve 8 seeded requests of 16 new tokens at the full width of
    smollm-360m (bf16, seeded random weights, batch 8, max_seq 256) with the
    ``shvs`` and the ``fused`` backends, with every launch counter set to 0
@@ -71,19 +75,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    card from a seed, at B = 8, V = 49152 and B = 64, V = 151936, 20
    submits each at 1, 2, 4 and 8 workers (capped at ``os.cpu_count()``):
    median transfer and sampler ms, tokens equal across worker counts;
-7. the pipeline engine at full width through ``build_engine`` (``shvs``,
-   batch 8): (p, M) = (2, 2), (2, 4), (4, 4), (4, 8), each with the
-   decision in the host pool (``disaggregated``, 2 workers) and drawn on
-   the card after the last stage (``baseline``), the paged cache at (2, 4)
-   in both modes, and ``fused`` with k_cap = 2048 in ``baseline``; for
+7. the pipeline engine at full width and half depth (16 of smollm-360m's 32
+   layers, to leave the script's time to phase 9) through ``build_engine``
+   (``shvs``, batch 8): (p, M) = (2, 2), (2, 4), (4, 4), (4, 8), each with
+   the decision in the host pool (``disaggregated``, 2 workers) and drawn
+   on the card after the last stage (``baseline``), the paged cache at (2,
+   4) in both modes, and ``fused`` with k_cap = 2048 in ``baseline``; for
    each, tok/s, TTFT and TPOT p50, ``pipeline_report()`` (Eq. 4's cycle
-   time C and bubble fraction for p separate cards, from the measured
-   stage times), the wall time of a cycle on this card, and the launches
-   of ``penalty_scale``, ``shvs_masses`` and ``fused_sample`` (one draw an
+   time C and bubble fraction for p separate cards, from the measured stage
+   times), the wall time of a cycle on this card, and the launches of
+   ``penalty_scale``, ``shvs_masses`` and ``fused_sample`` (one draw an
    admission, and in ``baseline`` one a commit); greedy streams equal the
-   single-stage engine's up to a first difference where the top-two
-   logit gap is below ``GAP_CLEAR``; then the pool alone at the
-   microbatches' R = 4, 2, 1 rows over 1–8 workers.
+   single-stage engine's up to a first difference where the top-two logit
+   gap is below ``GAP_CLEAR``; then the pool alone at the microbatches' R =
+   4, 2, 1 rows over 1–8 workers.
 
 8. KV migration, the prefill/decode handoff and the gateway, at full
    width (smollm-360m, bf16, batch 8, max_seq 256, one parameter tree for
@@ -106,6 +111,36 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (``summarize_traces``), each replica's stats and ``migration_stats()``
    and the decision kernels' launches.
 
+9. the MoE, RWKV-6 and Zamba2 families at full width, one at a time
+   (granite-moe-1b-a400m 24 L, d 1024, 32 experts top-8, V = 49155;
+   rwkv6-3b 32 L, d 2560, V = 65536; zamba2-1.2b 38 L, d 2048, V = 32000;
+   bf16 seeded weights through ``build_engine``, batch 8, max_seq 256, H =
+   min(1024, V/4), k_cap 256): (a) ``shvs`` and ``fused``, 8 seeded
+   requests of 16 new tokens: every request finishes with its length, two
+   runs equal, overlapped ≡ sequential, the decision kernels launch, three
+   steady-state steps make no synchronising call, and greedy
+   ``shvs``/``fused`` equal ``reference`` up to a first difference at a
+   top-two gap below ``GAP_CLEAR``; (b) prefill(T-3) + 3 teacher-forced
+   decode steps against prefill(T) through ``Model``, in bf16 and in f32
+   (MoE at capacity_factor = E, as the reference's consistency test runs):
+   the max relative error of the logits (below 1e-3 in f32), equal argmax
+   where the gap is clear; (c) granite on the paged cache (16 blocks of 16,
+   preempting) with chunked prefill (64), ``gumbel`` and long prompts: two
+   runs equal, ``gumbel_argmax`` and ``penalty_scale`` launch at V = 49155,
+   greedy paged vs contiguous agreement and the pairs dropped printed; (d)
+   granite through ``PipelineEngine`` at (2, 4): at the config's capacity
+   factor (``baseline``) the agreement with the single-stage engine and the
+   drops are printed (2-row admissions drop other pairs than 8-row ones);
+   at capacity_factor = E, ``baseline`` and ``disaggregated``, the gap rule
+   holds; (e) rwkv6-3b and zamba2-1.2b refuse ``cache="paged"`` and serve
+   ``prompt_chunk=64`` monolithically, streams equal the unchunked run's;
+   (f) a step profile of each family's ``shvs`` engine (as phase 5, plus
+   launches a layer, the weight-bytes floor and ``Model.prefill`` ms at B =
+   8, Sp = 32).
+
+``python3 chip_smoke.py --families-only`` builds the kernels and runs
+phases 3 and 9 alone, printing one JSON line.
+
 ``python3 chip_smoke.py --host-only`` builds the kernels and runs phase 5's
 ``shvs`` rows on the device and in the host pool, in turns, and the pool
 alone at the main shape, printing one JSON line: run it under different
@@ -127,6 +162,7 @@ The last two lines of standard output are the ``kernels`` JSON object and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -618,54 +654,109 @@ def kernel_bounds(B, V):
     return bounds
 
 
+# phase 3's reduced f32 models: (arch, MoE capacity factor or None); the
+# lowered factor makes granite's prefill drop pairs
+MODEL_CHECKS = (("smollm-360m", None), ("granite-moe-1b-a400m", 0.5),
+                ("llama4-maverick-400b-a17b", None), ("rwkv6-3b", None),
+                ("zamba2-1.2b", None))
+
+
+def with_capacity(cfg, factor):
+    """``cfg`` with its MoE capacity factor set to ``factor``."""
+    import dataclasses
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """Counts the (token, k) pairs every MoE call of the block routes and
+    drops past capacity (reads each call's count back: not for timed
+    runs)."""
+    from repro_torch.models import moe
+    slots = moe._slots
+    n = {"pairs": 0, "dropped": 0}
+
+    def counting(ids_flat, num_experts, capacity):
+        out = slots(ids_flat, num_experts, capacity)
+        n["pairs"] += ids_flat.numel()
+        n["dropped"] += int((~out[2]).sum())
+        return out
+
+    moe._slots = counting
+    try:
+        yield n
+    finally:
+        moe._slots = slots
+
+
 def check_model(dev):
-    """Phase 3: the CUDA forward against the CPU forward on a reduced f32
-    model (prefill + 3 decode steps)."""
+    """Phase 3: the CUDA forward against the CPU forward on reduced f32
+    models (right-padded prefill + 3 decode steps): logits and every cache
+    leaf at 1e-4, and MoE drops equal on both devices. Returns the max
+    abs error per arch."""
     import torch
     from repro_torch.config import get_arch
     from repro_torch.models.model import Model
-    cfg = get_arch("smollm-360m").reduced()
-    model = Model(cfg)
-    params_cpu = model.init(seed=5, device="cpu")
-    to = lambda t, d: {k: to(v, d) if isinstance(v, dict) else v.to(d)
-                       for k, v in t.items()}
-    params_gpu = to(params_cpu, dev)
-    gen = torch.Generator().manual_seed(3)
-    toks = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen,
-                         dtype=torch.int32)
-    lens = torch.tensor([20, 11, 7], dtype=torch.int32)
-    steps = torch.randint(0, cfg.vocab_size, (3, 3), generator=gen,
-                          dtype=torch.int32)
-    worst = 0.0
-    outs = []
-    for d, p in (("cpu", params_cpu), (dev, params_gpu)):
-        cache = model.init_cache(3, 32, device=d)
-        logits, cache = model.prefill(p, {"tokens": toks.to(d)}, cache,
-                                      true_lens=lens.to(d))
-        seq = [logits.cpu()]
-        for nxt in steps:
-            logits, cache = model.decode_step(p, nxt.to(d), cache)
-            seq.append(logits.cpu())
-        outs.append(seq)
-    for a, b in zip(*outs):
-        assert torch.isfinite(b).all()
-        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
-        worst = max(worst, (a - b).abs().max().item())
-    print(f"model check (reduced f32, CUDA vs CPU forward): max abs err "
-          f"{worst:.3g}")
-    return worst
+    out = {}
+    for arch, factor in MODEL_CHECKS:
+        cfg = get_arch(arch).reduced()
+        if factor is not None:
+            cfg = with_capacity(cfg, factor)
+        model = Model(cfg)
+        params_cpu = model.init(seed=5, device="cpu")
+        to = lambda t, d: {k: to(v, d) if isinstance(v, dict) else v.to(d)
+                           for k, v in t.items()}
+        gen = torch.Generator().manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen,
+                             dtype=torch.int32)
+        lens = torch.tensor([20, 11, 7], dtype=torch.int32)
+        steps = torch.randint(0, cfg.vocab_size, (3, 3), generator=gen,
+                              dtype=torch.int32)
+        runs = []
+        for d, p in (("cpu", params_cpu), (dev, to(params_cpu, dev))):
+            with counted_drops() as drops:
+                cache = model.init_cache(3, 32, device=d)
+                logits, cache = model.prefill(p, {"tokens": toks.to(d)},
+                                              cache, true_lens=lens.to(d))
+                seq = [logits.cpu()]
+                for nxt in steps:
+                    logits, cache = model.decode_step(p, nxt.to(d), cache)
+                    seq.append(logits.cpu())
+            runs.append((seq, {k: v.cpu() for k, v in cache.items()},
+                         dict(drops)))
+        (a, ca, da), (b, cb, db) = runs
+        worst = 0.0
+        for x, y in list(zip(a, b)) + [(ca[k], cb[k]) for k in ca]:
+            assert torch.isfinite(y.float()).all()
+            torch.testing.assert_close(y, x, rtol=1e-4, atol=1e-4)
+            worst = max(worst, (x.float() - y.float()).abs().max().item())
+        assert da == db, (arch, da, db)
+        if factor is not None:
+            assert da["dropped"] > 0, "the lowered factor was meant to drop"
+        out[arch] = worst
+        moe = (f"; capacity factor {cfg.moe.capacity_factor}: "
+               f"{da['dropped']} of {da['pairs']} (token, k) pairs dropped "
+               f"on both devices") if cfg.moe is not None else ""
+        print(f"model check {arch} (reduced f32, CUDA vs CPU forward, "
+              f"logits and cache leaves {sorted(ca)}): max abs err "
+              f"{worst:.3g}{moe}")
+    return out
 
 
-def engine(algorithm, dev, **kw):
+def engine(algorithm, dev, layers=32, **kw):
     """The serve driver's engine (``launch/serve.py build_engine``) for
     full-width smollm-360m: bf16 weights from seed 0, batch 8, max_seq 256,
-    H = 1024, k_cap = 256; ``kw`` (cache, block_size, num_blocks,
-    prompt_chunk) go to ``build_engine``."""
+    H = 1024, k_cap = 256, ``layers`` of its 32 layers; ``kw`` (cache,
+    block_size, num_blocks, prompt_chunk) go to ``build_engine``."""
+    import dataclasses
+    from repro_torch.config import get_arch
     from repro_torch.launch.serve import build_engine
-    eng = build_engine("smollm-360m", False, algorithm, B_MAIN, 256,
-                       device=dev, **kw)
+    cfg = dataclasses.replace(get_arch("smollm-360m"), num_layers=layers)
+    eng = build_engine(cfg, False, algorithm, B_MAIN, 256, device=dev,
+                       **kw)
     cfg = eng.cfg
-    assert cfg.num_layers == 32 and cfg.d_model == 960 and \
+    assert cfg.num_layers == layers and cfg.d_model == 960 and \
         cfg.vocab_size == V_MAIN and cfg.dtype == "bfloat16"
     assert eng.ecfg.shvs.resolve_hot_size(V_MAIN) == H_MAIN and \
         eng.decision.k_cap == kw.get("k_cap", K_CAP)
@@ -873,6 +964,55 @@ def serve_paged(dev, card):
     return out, counts
 
 
+def step_profile(eng, reqs):
+    """A steady-state decode step of ``eng`` serving ``reqs``: 6 steps of
+    warm-up (admission included), 10 timed on the host clock, 5 under
+    torch.profiler. Returns (record, the timed steps' ``StepRecord``s):
+    host wall ms a step, device busy ms a step (kernel times by name),
+    the idle share, launches a step and the decision kernels' ms a
+    step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    eng.submit(reqs)
+    for _ in range(6):
+        eng.step()
+    torch.cuda.synchronize()
+    n = 10
+    mark = len(eng.stats_log)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    window = list(eng.stats_log)[mark:]
+    n_prof = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.flush()
+    busy_us, launches, ours = 0.0, 0, {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if evt.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                       "cudaLaunchKernelExC", "cuLaunchKernel"):
+            launches += evt.count
+        elif dev_us > 0 and not evt.key.startswith("aten::"):
+            busy_us += dev_us
+            for k in ("penalty_scale", "shvs_masses", "fused_sample",
+                      "gumbel_argmax"):
+                if evt.key.startswith(k + "_"):
+                    ours[k] = ours.get(k, 0.0) + dev_us / n_prof / 1e3
+    busy_ms = busy_us / n_prof / 1e3
+    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "launches_per_step": launches / n_prof,
+            "decision_kernels_ms_per_step": ours}, window
+
+
 def profile_steps(dev, card, names=None):
     """Phase 5: where a steady-state decode step's time goes on each path
     (full width, batch 8): host wall time per step, device busy time per
@@ -883,8 +1023,6 @@ def profile_steps(dev, card, names=None):
     are prefilled before the window. The host-mode row also gives the
     engine's block on the pool's ticket per step (stall) and the wall less
     that block (the engine thread's own work)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import synth_requests
     out = {}
     paths = (("shvs", "shvs", {}), ("fused", "fused", {}),
@@ -895,53 +1033,16 @@ def profile_steps(dev, card, names=None):
         paths = [next(p for p in paths if p[0] == n) for n in names]
     for name, algorithm, kw in paths:
         eng = engine(algorithm, dev, **kw)
-        if "cache" in kw:
-            eng.submit(paged_requests(V_MAIN, max_new=64))
-        else:
-            eng.submit(synth_requests(8, V_MAIN, 64, seed=0))
-        for _ in range(6):
-            eng.step()
-        torch.cuda.synchronize()
-        n = 10
-        mark = len(eng.stats_log)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-        window = list(eng.stats_log)[mark:]
-        n_prof = 5
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_prof):
-                eng.step()
-            torch.cuda.synchronize()
-        eng.flush()
+        reqs = paged_requests(V_MAIN, max_new=64) if "cache" in kw else \
+            synth_requests(8, V_MAIN, 64, seed=0)
+        rec, window = step_profile(eng, reqs)
         eng.close()
-        busy_us, launches, ours = 0.0, 0, {}
-        for evt in prof.key_averages():
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = evt.self_cuda_time_total
-            if evt.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
-                           "cudaLaunchKernelExC", "cuLaunchKernel"):
-                launches += evt.count
-            elif dev_us > 0 and not evt.key.startswith("aten::"):
-                busy_us += dev_us
-                for k in ("penalty_scale", "shvs_masses", "fused_sample",
-                          "gumbel_argmax"):
-                    if evt.key.startswith(k + "_"):
-                        ours[k] = ours.get(k, 0.0) + dev_us / n_prof / 1e3
-        busy_ms = busy_us / n_prof / 1e3
-        out[name] = {"wall_ms_per_step": wall_ms,
-                          "device_busy_ms_per_step": busy_ms,
-                          "idle_share": 1.0 - busy_ms / wall_ms,
-                          "launches_per_step": launches / n_prof,
-                          "decision_kernels_ms_per_step": ours}
+        out[name] = rec
+        wall_ms, busy_ms = rec["wall_ms_per_step"], \
+            rec["device_busy_ms_per_step"]
         host = ""
         if kw.get("sampler_mode") == "host":
             mean = lambda k: sum(r[k] for r in window) / len(window)
-            rec = out[name]
             rec.update({k + "_per_step": mean(k) for k in
                         ("stall_ms", "sampler_ms", "transfer_ms")})
             rec["wall_less_stall_ms_per_step"] = \
@@ -952,8 +1053,9 @@ def profile_steps(dev, card, names=None):
                     f"transfer {rec['transfer_ms_per_step']:.2f} ms")
         print(f"step profile {name}: wall {wall_ms:.2f} ms/step, device "
               f"busy {busy_ms:.2f} ms/step (idle share "
-              f"{1.0 - busy_ms / wall_ms:.1%}), {launches / n_prof:.0f} "
-              f"launches/step, decision kernels {ours}{host} [{card}]")
+              f"{rec['idle_share']:.1%}), {rec['launches_per_step']:.0f} "
+              f"launches/step, decision kernels "
+              f"{rec['decision_kernels_ms_per_step']}{host} [{card}]")
     return out
 
 
@@ -1213,6 +1315,9 @@ def pipeline_run(eng, reqs):
 
 
 PIPELINE_SHAPES = ((2, 2), (2, 4), (4, 4), (4, 8))
+# phase 7 runs smollm-360m at half its depth (16 of 32 layers, full
+# width) to leave the script's time to phase 9
+PIPELINE_LAYERS = 16
 # a first difference of two greedy streams is allowed only where the top
 # two logits lie within this of each other: bf16 GEMMs at R rows and at B
 # rows may round differently (a few bf16 steps at logits of a few units)
@@ -1221,7 +1326,8 @@ GAP_CLEAR = 0.25
 
 def serve_pipeline(dev, card):
     """Phase 7: the pipeline engine at full width through ``build_engine``
-    (smollm-360m, bf16, batch 8, ``shvs``, contiguous): (p, M) in
+    (smollm-360m at ``PIPELINE_LAYERS`` = 16 of its 32 layers, bf16,
+    batch 8, ``shvs``, contiguous): (p, M) in
     ``PIPELINE_SHAPES``, each with the decision in the host pool
     (``disaggregated``, 2 workers) and drawn synchronously on the card
     after the last stage (``baseline``); the paged cache at (2, 4) in both
@@ -1233,7 +1339,7 @@ def serve_pipeline(dev, card):
     ``baseline`` every commit's draw, launch the run's kernels."""
     from repro_torch.launch.serve import serve_batch, synth_requests
     V = V_MAIN
-    eng = engine("shvs", dev)
+    eng = engine("shvs", dev, layers=PIPELINE_LAYERS)
     single = synth_requests(8, V, 16, greedy=True)
     serve_batch(eng, single)
     eng.close()
@@ -1246,7 +1352,8 @@ def serve_pipeline(dev, card):
     out = {}
     for p, M, mode, cache, algorithm, k_cap in configs:
         name = f"{algorithm}_p{p}_M{M}_{mode}_{cache}"
-        eng = engine(algorithm, dev, stages=p, microbatches=M,
+        eng = engine(algorithm, dev, layers=PIPELINE_LAYERS, stages=p,
+                     microbatches=M,
                      sampler_mode=mode, samplers=2, cache=cache, k_cap=k_cap)
         serve_batch(eng, synth_requests(2, V, 2, rng_seed=99, seed=0))  # warm
         reqs = synth_requests(8, V, 16, seed=0)
@@ -1668,6 +1775,396 @@ def migration_only(dev, card):
     return 0
 
 
+# phase 9: the MoE, RWKV-6 and Zamba2 families at full width
+FAMILIES = {"granite-moe-1b-a400m": (24, 1024, 49155),   # (L, d, V)
+            "rwkv6-3b": (32, 2560, 65536),
+            "zamba2-1.2b": (38, 2048, 32000)}
+FAMILY_NEW = 16
+
+
+def family_engine(arch, algorithm, dev, params, **kw):
+    """``build_engine`` over one family's parameter tree: batch 8,
+    max_seq 256, H = min(1024, V/4), k_cap 256; ``arch`` an arch id or a
+    ``ModelConfig``."""
+    from repro_torch.launch.serve import build_engine
+    eng = build_engine(arch, False, algorithm, B_MAIN, 256, device=dev,
+                       params=params, **kw)
+    V = eng.cfg.vocab_size
+    assert eng.ecfg.shvs.resolve_hot_size(V) == min(1024, V // 4) and \
+        eng.decision.k_cap == kw.get("k_cap", K_CAP)
+    return eng
+
+
+def family_serve(eng, reqs, name, card):
+    """Serve ``reqs`` with the launch counters set to 0 just before and
+    read just after; every request must finish with its length."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch
+    V = eng.cfg.vocab_size
+    ops.reset_launch_counts()
+    rep = serve_batch(eng, reqs)
+    rep["launches"] = ops.launch_counts()
+    for r in reqs:
+        assert r.finish_reason == "length" and \
+            len(r.output) == r.max_new_tokens, \
+            (name, r.request_id, r.finish_reason, len(r.output))
+        assert all(0 <= t < V for t in r.output)
+    print(f"{name}: {rep['requests']} requests, {rep['tokens']} tokens, "
+          f"{rep['tok_per_s']:.1f} tok/s, TTFT p50 {rep['ttft_p50_ms']:.2f} "
+          f"ms, TPOT p50 {rep['tpot_p50_ms']:.2f} ms, launches "
+          f"{rep['launches']} [{card}]")
+    return rep
+
+
+def gap_checked(eng, a, b, dev, name, assert_gap=True):
+    """``agreement`` of two greedy runs; with ``assert_gap`` a first
+    difference must lie where the top-two logit gap is below
+    ``GAP_CLEAR``."""
+    cmp = agreement(eng, a, b, dev)
+    first = cmp["first_difference"]
+    if assert_gap:
+        assert first is None or first["top2_gap"] < GAP_CLEAR, (name, cmp)
+    return cmp
+
+
+def no_sync_steps(eng, reqs, n=3):
+    """``n`` steady-state steps of ``eng`` under sync debug mode "error":
+    any synchronising call raises."""
+    import torch
+    eng.submit(reqs)
+    eng.step()                  # admission reads the first tokens back
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.flush()
+
+
+def weight_floor(cfg, params):
+    """The device's floor a decode step from weight bytes over the HBM
+    rate: every parameter read once (at batch 8 the (E, C, d) dispatch
+    reads every expert), Zamba2's shared block once a site."""
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if cfg.family == "hybrid":
+        sites = -(-cfg.num_layers // cfg.hybrid.attn_every)
+        shared = sum(t.numel() * t.element_size() for k in
+                     ("shared_attn", "shared_mlp")
+                     for t in _leaves(params["stack"][k]))
+        nbytes += (sites - 1) * shared
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def family_consistency(model, params, dev, card):
+    """Phase 9 (b): prefill(T-3) + 3 teacher-forced decode steps against
+    prefill(T), unpadded, through ``Model`` (batch 2, T = 24), in bf16 and
+    with the weights widened to f32: the max relative error of the
+    logits (asserted below 1e-3 in f32, the state carry's check; in bf16
+    seeded random weights amplify rounding with depth), and equal argmax
+    where the top-two gap is clear. MoE runs at capacity_factor = E, as
+    the reference's own consistency test does (its reduced configs never
+    drop): drops depend on the tokens of the call."""
+    import dataclasses
+    import torch
+    from repro_torch.models.model import Model
+    cfg = model.cfg
+    if cfg.moe is not None:
+        cfg = with_capacity(cfg, float(cfg.moe.num_experts))
+    B, T = 2, 24
+    toks = torch.randint(1, cfg.vocab_size, (B, T), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(11)).to(dev)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        m = Model(dataclasses.replace(cfg, dtype=dtype))
+        p = params if dtype == "bfloat16" else _cast(params, torch.float32)
+        full, _ = m.prefill(p, {"tokens": toks},
+                            m.init_cache(B, 256, device=dev))
+        logits, cache = m.prefill(p, {"tokens": toks[:, :T - 3]},
+                                  m.init_cache(B, 256, device=dev))
+        for t in range(T - 3, T):
+            logits, cache = m.decode_step(p, toks[:, t], cache)
+        del p, cache
+        assert torch.isfinite(logits).all() and logits.shape == full.shape
+        rel = ((logits - full).abs().max() / full.abs().max()).item()
+        top = full.topk(2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1]) >= GAP_CLEAR
+        same = logits.argmax(-1) == full.argmax(-1)
+        assert bool((same | ~clear).all()), (cfg.name, dtype, rel)
+        if dtype == "float32":
+            assert rel < 1e-3, (cfg.name, rel)
+        out[dtype] = {"max_rel_err": rel, "argmax_equal": int(same.sum()),
+                      "clear_rows": int(clear.sum())}
+        print(f"{cfg.name} consistency ({dtype}, prefill {T - 3} + 3 decode "
+              f"vs prefill {T}): max rel err of the logits {rel:.3g}, argmax "
+              f"equal on {int(same.sum())}/{B} rows ({int(clear.sum())} with "
+              f"a clear gap) [{card}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cast(tree, dtype):
+    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def prefill_ms(model, params, dev, Sp=32):
+    """Median ms of ``Model.prefill`` at B = 8, Sp tokens (host clock
+    around a synchronise, 3 runs after one warm-up)."""
+    import statistics
+    import torch
+    toks = torch.randint(1, model.cfg.vocab_size, (B_MAIN, Sp),
+                         dtype=torch.int32, device=dev)
+    times = []
+    for i in range(4):
+        cache = model.init_cache(B_MAIN, 256, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def serve_family(arch, dev, card):
+    """Phase 9 (a), (b), (e), (f) for one family, and (c), (d) for the MoE
+    family; returns the records and the launches of the main runs."""
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import serve_batch, synth_requests
+    from repro_torch.models.model import Model
+    cfg = get_arch(arch)
+    L, d, V = FAMILIES[arch]
+    assert (cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.dtype) == \
+        (L, d, V, "bfloat16"), arch
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    wbytes, floor_ms = weight_floor(cfg, params)
+    print(f"{arch} full width: {n_params} parameters, {wbytes} weight bytes "
+          f"a decode step, floor {floor_ms:.3f} ms at 3.35 TB/s")
+    out = {"parameters": n_params, "weight_bytes": wbytes,
+           "weight_floor_ms": floor_ms}
+    secs, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        now = time.perf_counter()
+        secs[part] = now - t0
+        t0 = now
+
+    seeded = lambda: synth_requests(8, V, FAMILY_NEW, seed=0)
+    greedy = lambda: synth_requests(8, V, FAMILY_NEW, greedy=True)
+    # (a) shvs and fused: two runs, overlapped and sequential, no sync
+    streams, counts, greedy_runs = {}, {}, {}
+    for algorithm in ("shvs", "fused"):
+        eng = family_engine(arch, algorithm, dev, params)
+        serve_batch(eng, synth_requests(2, V, 2, rng_seed=99, seed=0))
+        runs = []
+        for run in range(2):
+            reqs = seeded()
+            rep = family_serve(eng, reqs, f"{arch} {algorithm} run {run}",
+                               card)
+            runs.append([r.output for r in reqs])
+            out[f"{algorithm}_run{run}"] = rep
+        counts[algorithm] = out[f"{algorithm}_run0"]["launches"]
+        assert runs[0] == runs[1], (arch, algorithm, "two runs differ")
+        g = greedy()
+        serve_batch(eng, g)
+        greedy_runs[algorithm] = g
+        if algorithm == "shvs":
+            no_sync_steps(eng, seeded())
+        eng.close()
+        eng = family_engine(arch, algorithm, dev, params, overlap=False)
+        reqs = seeded()
+        out[f"{algorithm}_sequential"] = family_serve(
+            eng, reqs, f"{arch} {algorithm} sequential", card)
+        eng.close()
+        assert [r.output for r in reqs] == runs[0], \
+            (arch, algorithm, "sequential differs from overlapped")
+        streams[algorithm] = runs[0]
+    assert counts["shvs"]["penalty_scale"] > 0 and \
+        counts["shvs"]["shvs_masses"] > 0 and \
+        counts["fused"]["fused_sample"] > 0, (arch, counts)
+    eng = family_engine(arch, "reference", dev, params)
+    greedy_runs["reference"] = greedy()
+    serve_batch(eng, greedy_runs["reference"])
+    out["greedy"] = {f"{a}_vs_reference": gap_checked(
+        eng, greedy_runs[a], greedy_runs["reference"], dev, arch)
+        for a in ("shvs", "fused")}
+    eng.close()
+    print(f"{arch}: two runs equal, overlapped ≡ sequential (shvs, fused), "
+          f"3 steady-state steps made no synchronising call; greedy vs "
+          f"reference {out['greedy']} [{card}]")
+    lap("a")
+    # (b) the prefill/decode consistency of the reference's tests
+    out["consistency"] = family_consistency(model, params, dev, card)
+    lap("b")
+    if cfg.family == "moe":
+        out["paged"] = family_paged(arch, dev, params, card)
+        lap("c")
+        out["pipeline"] = family_pipeline(arch, dev, params, card)
+        lap("d")
+    else:
+        # (e) the gates: no paged cache; chunking ignored
+        try:
+            family_engine(arch, "shvs", dev, params, cache="paged")
+        except AssertionError as e:
+            out["paged_refused"] = str(e)
+        else:
+            raise AssertionError(f"{arch}: cache='paged' was accepted")
+        eng = family_engine(arch, "shvs", dev, params, prompt_chunk=64)
+        assert eng.scheduler.prompt_chunk == 0
+        reqs = seeded()
+        out["chunk_ignored"] = family_serve(
+            eng, reqs, f"{arch} shvs prompt_chunk=64", card)
+        eng.close()
+        assert [r.output for r in reqs] == streams["shvs"], \
+            f"{arch}: prompt_chunk changed the streams"
+        print(f"{arch}: cache='paged' refused ({out['paged_refused']}); "
+              f"prompt_chunk=64 served monolithically, streams equal")
+        lap("e")
+    # (f) the step profile and the prefill
+    eng = family_engine(arch, "shvs", dev, params)
+    rec, _ = step_profile(eng, synth_requests(8, V, 64, seed=0))
+    eng.close()
+    rec["launches_per_layer"] = rec["launches_per_step"] / L
+    rec["prefill_ms_sp32"] = prefill_ms(model, params, dev)
+    rec["weight_floor_ms"] = floor_ms
+    out["step_profile"] = rec
+    lap("f")
+    out["seconds"] = secs
+    print(f"{arch} step profile (shvs): wall {rec['wall_ms_per_step']:.2f} "
+          f"ms/step, device busy {rec['device_busy_ms_per_step']:.2f} ms/step "
+          f"(idle share {rec['idle_share']:.1%}; weight floor "
+          f"{floor_ms:.3f} ms), {rec['launches_per_step']:.0f} launches/step "
+          f"({rec['launches_per_layer']:.1f} a layer), decision kernels "
+          f"{rec['decision_kernels_ms_per_step']}; prefill B=8 Sp=32 "
+          f"{rec['prefill_ms_sp32']:.1f} ms [{card}]")
+    print(f"{arch} phase 9 parts took (s): "
+          f"{ {k: round(v, 1) for k, v in secs.items()} }")
+    del params, model
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def family_paged(arch, dev, params, card):
+    """Phase 9 (c): the MoE family on the paged cache (blocks of 16, a pool
+    of 16 blocks: decode growth preempts) with chunked prefill (64),
+    ``gumbel``, the long prompts of phase 4's second path: the decision
+    kernels serve V = 49155; two runs equal; greedy paged vs contiguous
+    agreement printed (chunks and preemption change the calls' tokens, so
+    capacity drops and bf16 GEMM shapes differ)."""
+    from repro_torch.launch.serve import serve_batch, synth_requests
+    V = FAMILIES[arch][2]
+    out, streams = {}, []
+    for run in range(2):
+        eng = family_engine(arch, "gumbel", dev, params, **PAGED)
+        serve_batch(eng, synth_requests(2, V, 2, rng_seed=99, seed=0))
+        p0 = eng.scheduler.preemptions
+        reqs = paged_requests(V)
+        rep = family_serve(eng, reqs, f"{arch} gumbel paged run {run}",
+                           card)
+        rep["preemptions"] = eng.scheduler.preemptions - p0
+        eng.close()
+        assert rep["preemptions"] > 0, "the pool was meant to exhaust"
+        assert rep["launches"]["gumbel_argmax"] > 0 and \
+            rep["launches"]["penalty_scale"] > 0, rep["launches"]
+        assert eng.alloc.num_free == eng.pcfg.num_blocks
+        streams.append([r.output for r in reqs])
+        out[f"gumbel_paged_run{run}"] = rep
+    assert streams[0] == streams[1], f"{arch} paged: two runs differ"
+    greedy = {}
+    for name, kw in (("contiguous", {}), ("paged_chunked", PAGED)):
+        eng = family_engine(arch, "reference", dev, params, **kw)
+        greedy[name] = paged_requests(V, greedy=True, max_new=FAMILY_NEW)
+        with counted_drops() as drops:
+            serve_batch(eng, greedy[name])
+        out[f"greedy_{name}_drops"] = dict(drops)
+        eng.close()
+    cmp = gap_checked(eng, greedy["paged_chunked"], greedy["contiguous"],
+                      dev, arch, assert_gap=False)
+    out["greedy_paged_vs_contiguous"] = cmp
+    print(f"{arch} paged: two runs equal "
+          f"({out['gumbel_paged_run0']['preemptions']} preemptions a run);"
+          f" greedy paged+chunked vs contiguous: token agreement "
+          f"{cmp['agreement']:.4f}, first difference "
+          f"{cmp['first_difference']}; (token, k) pairs dropped "
+          f"{out['greedy_contiguous_drops']} contiguous, "
+          f"{out['greedy_paged_chunked_drops']} paged+chunked [{card}]")
+    return out
+
+
+def family_pipeline(arch, dev, params, card):
+    """Phase 9 (d): the MoE family through ``PipelineEngine`` at (p, M) =
+    (2, 4), ``baseline`` and ``disaggregated``, against the single-stage
+    engine's greedy streams. A pipeline admits a microbatch's R = 2 rows
+    a prefill where the single-stage engine admits 8, so at the config's
+    capacity factor the prefills drop other pairs: there (``baseline``
+    only) the agreement and the drops are printed. At capacity_factor = E
+    nothing drops, and the streams must agree under the gap rule."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import serve_batch, synth_requests
+    cfg = get_arch(arch)
+    V = cfg.vocab_size
+    out = {}
+    for label, c in (("config", cfg),
+                     ("no_drops", with_capacity(
+                         cfg, float(cfg.moe.num_experts)))):
+        eng = family_engine(c, "shvs", dev, params)
+        single = synth_requests(8, V, FAMILY_NEW, greedy=True)
+        with counted_drops() as drops:
+            serve_batch(eng, single)
+        eng.close()
+        out[f"single_{label}_drops"] = dict(drops)
+        modes = ("baseline", "disaggregated") if label == "no_drops" \
+            else ("baseline",)
+        for mode in modes:
+            name = f"{label}_p2_M4_{mode}"
+            eng = family_engine(c, "shvs", dev, params, stages=2,
+                                microbatches=4, sampler_mode=mode,
+                                samplers=2)
+            serve_batch(eng, synth_requests(2, V, 2, rng_seed=99, seed=0))
+            rep = pipeline_run(eng, synth_requests(8, V, FAMILY_NEW, seed=0))
+            g = synth_requests(8, V, FAMILY_NEW, greedy=True)
+            with counted_drops() as drops:
+                serve_batch(eng, g)
+            eng.close()
+            rep["greedy_drops"] = dict(drops)
+            rep["greedy_vs_single_stage"] = cmp = gap_checked(
+                eng, g, single, dev, name, assert_gap=label == "no_drops")
+            assert rep["launches"]["penalty_scale"] > 0, rep["launches"]
+            out[name] = rep
+            print(f"{arch} pipeline {name}: {rep['tok_per_s']:.1f} tok/s, "
+                  f"TPOT p50 {rep['tpot_p50_ms']:.2f} ms, wall "
+                  f"{rep['wall_cycle_ms']:.2f} ms a cycle, launches "
+                  f"{rep['launches']}; greedy vs single-stage agreement "
+                  f"{cmp['agreement']:.4f}, first difference "
+                  f"{cmp['first_difference']}; pairs dropped "
+                  f"{rep['greedy_drops']} (single-stage "
+                  f"{out[f'single_{label}_drops']}) [{card}]")
+    return out
+
+
+def serve_families(dev, card):
+    """Phase 9: the three families at full width, one at a time."""
+    out, counts = {}, {}
+    for arch in FAMILIES:
+        out[arch], counts[arch] = serve_family(arch, dev, card)
+    return out, counts
+
+
+def families_only(dev, card):
+    """``--families-only``: phases 3 and 9; prints one JSON line."""
+    model = check_model(dev)
+    runs, counts = serve_families(dev, card)
+    print(json.dumps({"families_only": {
+        "card": card, "model_check_max_abs_err": model, "runs": runs,
+        "launches": counts}}))
+    return 0
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1873,6 +2370,10 @@ def main() -> int:
                     help="build the kernels and run phase 8 (KV migration, "
                          "the handoff and the gateway) only; prints one "
                          "JSON line")
+    ap.add_argument("--families-only", action="store_true",
+                    help="build the kernels and run phases 3 and 9 (the "
+                         "MoE, RWKV-6 and Zamba2 families) only; prints "
+                         "one JSON line")
     ap.add_argument("--switch-interval", type=float, default=None,
                     help="sys.setswitchinterval(seconds) before anything "
                          "runs: how often Python threads (the gateway's "
@@ -1933,6 +2434,8 @@ def main() -> int:
         return pipeline_only(dev, card)
     if args.migration_only:
         return migration_only(dev, card)
+    if args.families_only:
+        return families_only(dev, card)
 
     t_phase = time.perf_counter()
 
@@ -1958,6 +2461,8 @@ def main() -> int:
     phase_done(7)
     migration_runs = serve_migration(dev, card)
     phase_done(8)
+    family_runs, family_counts = serve_families(dev, card)
+    phase_done(9)
 
     launch_of = {"penalty_scale": counts["shvs"]["penalty_scale"],
                  "shvs_masses": counts["shvs"]["shvs_masses"],
@@ -1982,6 +2487,7 @@ def main() -> int:
               "model_check_max_abs_err": model_err, "runs": runs,
               "step_profile": steps, "host_placement": host_runs,
               "pipeline": pipeline_runs, "migration": migration_runs,
+              "families": family_runs, "family_launches": family_counts,
               "fused_large_k": large_k,
               "gumbel_sass": sass,
               "gumbel_issue_floor": floor}

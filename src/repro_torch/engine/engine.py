@@ -328,11 +328,13 @@ class Engine:
         self.params = params
         B, S = engine_cfg.max_batch, engine_cfg.max_seq_len
         # chunked prefill and the paged cache are gated to full-causal
-        # decoders (the chunk and the gathered block view reuse the cached
-        # attention masks)
-        full_causal = not model_cfg.is_encdec and not model_cfg.sliding_window
+        # dense/MoE decoders (the chunk and the gathered block view reuse
+        # the cached attention masks); a recurrent family prefills whole
+        chunkable = (model_cfg.family in ("dense", "moe")
+                     and not model_cfg.is_encdec
+                     and not model_cfg.sliding_window)
         chunk = engine_cfg.prompt_chunk if (
-            engine_cfg.prompt_chunk > 0 and full_causal) else 0
+            engine_cfg.prompt_chunk > 0 and chunkable) else 0
         # a chunk's slab write needs lens + C <= max_seq_len even for the
         # last partial chunk, i.e. C <= max_seq_len // 2
         assert chunk <= S // 2, (
@@ -341,7 +343,8 @@ class Engine:
         self._paged = engine_cfg.cache == "paged"
         kv_gate = None
         if self._paged:
-            assert full_causal, "cache='paged': full-causal decoders only"
+            assert chunkable, \
+                "cache='paged': full-causal dense/moe decoders only"
             bs = engine_cfg.block_size
             assert S % bs == 0, (
                 f"max_seq_len={S} must be a multiple of block_size={bs} so "
@@ -1237,11 +1240,15 @@ class Engine:
 
 def _insert_rows(batch_cache, rows_cache, slots) -> None:
     """Write per-row cache entries into the engine's batch cache at
-    ``slots``, in place. K/V leaves are (L, B, ...) with the batch on
-    axis 1; ``len`` is (B,)."""
-    batch_cache["k"][:, slots] = rows_cache["k"]
-    batch_cache["v"][:, slots] = rows_cache["v"]
-    batch_cache["len"][slots] = rows_cache["len"]
+    ``slots``, in place: every leaf but ``len`` and ``pos`` is (L|G, B,
+    ...) with the batch on axis 1 (K/V and recurrent states alike, so an
+    admitted row never decodes from its slot's previous state); ``len``
+    is (B,); the scalar ``pos`` is left alone."""
+    for name, leaf in batch_cache.items():
+        if name == "len":
+            leaf[slots] = rows_cache[name]
+        elif name != "pos":
+            leaf[:, slots] = rows_cache[name]
 
 
 class SlotParams:

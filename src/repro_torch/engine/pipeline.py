@@ -42,7 +42,7 @@ keyed on (request, position), so tokens do not depend on the schedule.
 Unlike the reference's immutable arrays, K/V are written in place, so
 every microbatch owns its cache allocation (a stage's cache is a view of
 its layers); the paged pools are shared across microbatches on purpose, as
-the global block pool. Scope: full-causal dense decoders, monolithic
+the global block pool. Scope: full-causal dense/MoE decoders, monolithic
 prefill (a prompt runs through all stages in one program), and in paged
 mode a *reserving* admission gate (a request enters only when its worst
 case fits net of every running request's outstanding worst case), so
@@ -234,12 +234,9 @@ class PipelineEngine:
         p = engine_cfg.stages
         M = engine_cfg.microbatches or p
         B = engine_cfg.max_batch
-        if model_cfg.family != "dense":
-            raise NotImplementedError(
-                f"PipelineEngine: the {model_cfg.family!r} family is not "
-                "ported yet (ROADMAP 'Modules to port' item 4)")
-        assert not model_cfg.is_encdec and not model_cfg.sliding_window, \
-            "PipelineEngine: full-causal dense decoders only"
+        assert model_cfg.family in ("dense", "moe") \
+            and not model_cfg.is_encdec and not model_cfg.sliding_window, \
+            "PipelineEngine: full-causal dense/moe decoders only"
         assert engine_cfg.prompt_chunk == 0, \
             "PipelineEngine: chunked prefill not supported (prompts " \
             "prefill through all stages in one program)"

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --reduced --device cpu --requests 4 --max-new 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+        --reduced --device cpu      # also granite-moe-1b-a400m, zamba2-1.2b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --algorithm gumbel --cache paged --prompt-chunk 8 --long-prompts
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
@@ -70,14 +72,15 @@ def build_engine(arch: str, reduced: bool, algorithm: str, batch: int,
                  sampler_mode: str = None, pool_algorithm: str = None,
                  telemetry: Telemetry = None, weights: str = None,
                  k_cap: int = 256, device="cuda", params=None):
-    """An engine over ``arch`` on ``device``: a seeded random init, the
+    """An engine over ``arch`` (an arch id, or a ``ModelConfig``) on
+    ``device``: a seeded random init, the
     tree in ``weights`` (an npz of ``models.bridge.save_npz``), or
     ``params`` (a tree on ``device``, shared read-only by replicas). With
     ``stages > 1`` or ``microbatches`` a ``PipelineEngine`` (sampling in
     the host pool unless ``sampler_mode`` says otherwise), else an
     ``Engine`` (sampling on the device unless it says otherwise)."""
     dev = resolve_device(device)
-    cfg = get_arch(arch)
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
     if reduced:
         cfg = cfg.reduced()
     if params is None:

@@ -22,9 +22,27 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.layers import apply_rope, matmul, rms_norm
+from repro_torch.models.layers import (apply_rope, dense_init, matmul,
+                                      rms_norm, torch_dtype)
 
 NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
+                   stacked: int = 0):
+    """Seeded attention weights in the reference's layout (``(in, out)``,
+    a leading L axis when ``stacked``)."""
+    dt = torch_dtype(cfg.dtype)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    pre = (stacked,) if stacked else ()
+    mk = lambda i, o: dense_init(gen, pre + (i, o), dt, device)
+    p = {"w_q": mk(d, nh * hd), "w_k": mk(d, nkv * hd),
+         "w_v": mk(d, nkv * hd), "w_o": mk(nh * hd, d)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(pre + (hd,), dtype=dt, device=device)
+        p["k_norm"] = torch.ones(pre + (hd,), dtype=dt, device=device)
+    return p
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions, rope_tables=None):

@@ -45,6 +45,20 @@ def init_embeddings(gen: torch.Generator, cfg, device):
     return p
 
 
+def init_mlp(gen: torch.Generator, cfg, device, d_ff: int = 0,
+             stacked: int = 0):
+    """Seeded MLP weights in the reference's layout (``(in, out)``, a
+    leading L axis when ``stacked``)."""
+    dt = torch_dtype(cfg.dtype)
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    pre = (stacked,) if stacked else ()
+    mk = lambda i, o: dense_init(gen, pre + (i, o), dt, device)
+    p = {"w_up": mk(d, f), "w_down": mk(f, d)}
+    if cfg.act == "silu":
+        p["w_gate"] = mk(d, f)
+    return p
+
+
 def matmul(x, w):
     """x @ w, f32 accumulation, result in x's dtype."""
     return torch.matmul(x, w).to(x.dtype)

@@ -1,4 +1,4 @@
-"""Model facade over the dense decoder (the reference's ``Model``).
+"""Model facade over the token-only families (the reference's ``Model``).
 
     model = Model(cfg)
     params = model.init(seed=0, device="cuda")              # port's own init
@@ -14,7 +14,9 @@
 ``params`` is the reference's tree (``{"emb": {...}, "stack": {...}}``,
 weights ``(in, out)``, per-layer leaves stacked on a leading L axis); the
 reference's own init comes across through :mod:`repro_torch.models.bridge`.
-Only the dense family is ported.
+The ``dense``, ``moe``, ``ssm`` (RWKV-6) and ``hybrid`` (Zamba2) families
+are ported; the VLM and audio inputs (patch embeddings, the encoder and
+cross attention) are not.
 """
 from __future__ import annotations
 
@@ -23,17 +25,27 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import embed, init_embeddings, lm_head
-from repro_torch.models.transformer import (apply_dense_stack, init_cache,
-                                            init_dense_stack)
+from repro_torch.models.transformer import (apply_dense_stack,
+                                            apply_rwkv_stack,
+                                            apply_zamba_stack, init_cache,
+                                            init_dense_stack,
+                                            init_rwkv_stack, init_zamba_stack)
+
+# family -> (stack init, stack forward)
+_STACKS = {"dense": (init_dense_stack, apply_dense_stack),
+           "moe": (init_dense_stack, apply_dense_stack),
+           "ssm": (init_rwkv_stack, apply_rwkv_stack),
+           "hybrid": (init_zamba_stack, apply_zamba_stack)}
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
+        if cfg.family not in _STACKS or cfg.is_encdec:
             raise NotImplementedError(
                 f"the {cfg.family!r} family is not ported yet (ROADMAP "
                 "'Modules to port' item 4)")
         self.cfg = cfg
+        self._init_stack, self._apply_stack = _STACKS[cfg.family]
 
     # -- init ---------------------------------------------------------------
     def init(self, seed: int = 0, device="cuda") -> dict:
@@ -42,7 +54,7 @@ class Model:
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(seed)
         emb = init_embeddings(g, self.cfg, dev)
-        return {"emb": emb, "stack": init_dense_stack(g, self.cfg, dev)}
+        return {"emb": emb, "stack": self._init_stack(g, self.cfg, dev)}
 
     def init_cache(self, batch: int, seq_len: int, window=None, dtype=None,
                    device="cuda"):
@@ -67,7 +79,7 @@ class Model:
         batch; logits are taken at position true_len-1 and cache["len"] is
         set to it."""
         x, positions = self._embed_inputs(params, batch["tokens"])
-        y, cache = apply_dense_stack(params["stack"], x, positions,
+        y, cache = self._apply_stack(params["stack"], x, positions,
                                      self.cfg, cache, "prefill",
                                      window=window)
         if true_lens is not None:
@@ -88,10 +100,11 @@ class Model:
         tokens: (B, C) int32; counts: (B,) int32; mask: (B,) bool. Rows
         outside the mask keep their cache entries and their ``len``.
         Returns (logits at each row's last valid chunk position (B, V),
-        cache). Full-causal decoders only (the engine gates it); works on
-        contiguous and paged caches alike."""
+        cache). Full-causal dense/MoE decoders only (the engine gates it);
+        works on contiguous and paged caches alike."""
         cfg = self.cfg
-        assert not cfg.sliding_window, "chunked prefill: full-causal only"
+        assert cfg.family in ("dense", "moe") and not cfg.sliding_window, \
+            "chunked prefill: full-causal dense only"
         lens0 = cache["len"]
         x, positions = self._embed_inputs(params, tokens, lens=lens0)
         y, cache = apply_dense_stack(params["stack"], x, positions, cfg,
@@ -110,7 +123,7 @@ class Model:
         if tokens.dim() == 1:
             tokens = tokens[:, None]
         x, positions = self._embed_inputs(params, tokens, lens=cache["len"])
-        y, cache = apply_dense_stack(params["stack"], x, positions,
+        y, cache = self._apply_stack(params["stack"], x, positions,
                                      self.cfg, cache, "decode",
                                      window=window)
         return lm_head(params["emb"], y[:, -1]), cache
@@ -126,7 +139,10 @@ class Model:
         first stage (input embedding) and the last (tied LM head: the same
         tensor on both). ``cache`` is the stage's layer-sliced cache.
         Returns ``(activations (B, 1, d), cache)`` for inner stages and
-        ``(logits (B, V), cache)`` for the last."""
+        ``(logits (B, V), cache)`` for the last. Dense/MoE decoders only
+        (the pipeline engine gates it)."""
+        assert self.cfg.family in ("dense", "moe"), \
+            "pipeline stages: dense/moe decoder archs only"
         if first:
             tokens = x_or_tokens
             if tokens.dim() == 1:

@@ -1,0 +1,215 @@
+"""Linear-recurrence blocks: RWKV-6 ("Finch") and Mamba2.
+
+Each has one sequence form, used for prefill (T prompt tokens) and decode
+(T = 1); the reference's ``lax.scan`` over time is a Python loop over T
+here. The recurrent state is float32 throughout.
+
+RWKV-6 (arXiv:2404.05892), per layer
+  time-mix: token-shift mixed r/k/v/w/g projections; data-dependent decay
+      w_t = exp(-exp(w0 + tanh(x_w A) B))
+  wkv recurrence per head (hs = head size):
+      y_t = r_t · (S_{t-1} + diag(u) k_t v_t^T)
+      S_t = diag(w_t) S_{t-1} + k_t v_t^T
+  channel-mix: token-shift + squared-ReLU MLP with sigmoid receptance gate.
+
+Mamba2 (SSD, simplified: ngroups=1, conv over x only), per layer
+      dt_t = softplus(raw_dt + dt_bias)          (B, T, H)
+      a_t  = exp(-exp(A_log) * dt_t)
+      h_t  = a_t h_{t-1} + (dt_t x_t) ⊗ B_t      h: (B, H, hd, N)
+      y_t  = h_t · C_t + D x_t
+  with gated RMSNorm and output projection.
+
+Products the reference keeps in float32 (``preferred_element_type`` with
+no cast) run as float32 GEMMs of the widened operands here; the others
+accumulate in f32 and round to the activation dtype (``matmul``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.layers import dense_init, matmul, rms_norm, \
+    torch_dtype
+
+
+def matmul_f32(x, w):
+    """x @ w with a float32 result (bf16 products are exact in f32)."""
+    return torch.matmul(x.float(), w.float())
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6
+# ---------------------------------------------------------------------------
+
+
+def init_rwkv(gen: torch.Generator, cfg: ModelConfig, device,
+              stacked: int = 0):
+    """Seeded RWKV-6 layer weights in the reference's layout."""
+    d, f = cfg.d_model, cfg.d_ff
+    rank = cfg.ssm.decay_lora_rank
+    dt = torch_dtype(cfg.dtype)
+    pre = (stacked,) if stacked else ()
+    mk = lambda i, o, scale=None: dense_init(gen, pre + (i, o), dt, device,
+                                             scale)
+
+    def vec(shape, init=0.0, noise=0.0):
+        base = torch.full(pre + shape, init, dtype=torch.float32,
+                          device=device)
+        if noise:
+            base = base + noise * torch.randn(pre + shape, generator=gen,
+                                              device=device)
+        return base.to(dt)
+
+    return {
+        # time-mix
+        "mu": vec((5, d), 0.5, 0.1),          # mixing for r,k,v,w,g
+        "w_r": mk(d, d), "w_k": mk(d, d), "w_v": mk(d, d),
+        "w_g": mk(d, d), "w_o": mk(d, d),
+        "w0": vec((d,), -6.0, 0.3),           # base decay (w ≈ 1)
+        "lora_a": mk(d, rank, scale=0.01),
+        "lora_b": mk(rank, d, scale=0.01),
+        "u": vec((d,), 0.0, 0.3),             # per-channel bonus
+        "ln_x": torch.ones(pre + (d,), dtype=dt, device=device),
+        # channel-mix
+        "mu_c": vec((2, d), 0.5, 0.1),
+        "w_ck": mk(d, f), "w_cv": mk(f, d), "w_cr": mk(d, d),
+    }
+
+
+def _rwkv_decay(p, xw):
+    """Data-dependent per-channel decay in (0, 1). xw: (..., d)."""
+    lora = matmul_f32(xw, p["lora_a"])
+    lora = torch.matmul(torch.tanh(lora), p["lora_b"].float())
+    return torch.exp(-torch.exp(p["w0"].float() + lora))
+
+
+def _rwkv_mix(x, x_prev, mu):
+    """Token-shift interpolation: x + (x_prev - x) * mu."""
+    return x + (x_prev - x) * mu.to(x.dtype)
+
+
+def rwkv_time_mix_seq(p, x, x_last, state, cfg: ModelConfig):
+    """x: (B, T, d); x_last: (B, d) the previous token's input (zeros at
+    the start); state: (B, H, hs, hs) f32. Returns (out, new_x_last,
+    new_state)."""
+    B, T, d = x.shape
+    hs = cfg.ssm.rwkv_head_size
+    H = d // hs
+    x_prev = torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
+    mu = p["mu"]
+    xr, xk, xv, xw, xg = (_rwkv_mix(x, x_prev, mu[i]) for i in range(5))
+    r = matmul_f32(xr, p["w_r"]).reshape(B, T, H, hs)
+    k = matmul_f32(xk, p["w_k"]).reshape(B, T, H, hs)
+    v = matmul_f32(xv, p["w_v"]).reshape(B, T, H, hs)
+    g = F.silu(matmul_f32(xg, p["w_g"]))
+    w = _rwkv_decay(p, xw).reshape(B, T, H, hs)
+    u = p["u"].float().reshape(H, hs)[..., :, None]       # (H, hs, 1)
+    ys = []
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]    # (B, H, hs, hs)
+        ys.append(torch.matmul(r[:, t, :, None, :],
+                               state + u * kv)[:, :, 0])  # (B, H, hs)
+        state = w[:, t, :, :, None] * state + kv
+    y = torch.stack(ys, dim=1)                            # (B, T, H, hs)
+    # per-head group norm
+    y = rms_norm(y, torch.ones((hs,), dtype=torch.float32, device=x.device),
+                 cfg.rmsnorm_eps)
+    y = y.reshape(B, T, d) * p["ln_x"].float()
+    y = (y * g).to(x.dtype)
+    return matmul(y, p["w_o"]), x[:, -1], state
+
+
+def rwkv_channel_mix_seq(p, x, x_last):
+    """Channel-mix with token shift. Returns (out, new_x_last)."""
+    x_prev = torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
+    xk = _rwkv_mix(x, x_prev, p["mu_c"][0])
+    xr = _rwkv_mix(x, x_prev, p["mu_c"][1])
+    k = torch.square(torch.relu(matmul_f32(xk, p["w_ck"])))
+    kv = matmul(k.to(x.dtype), p["w_cv"])
+    r = torch.sigmoid(matmul_f32(xr, p["w_cr"]))
+    return r.to(x.dtype) * kv, x[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2
+# ---------------------------------------------------------------------------
+
+
+def mamba_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(inner, nheads, headdim, state)."""
+    inner = cfg.ssm.expand * cfg.d_model
+    headdim = cfg.resolved_head_dim
+    return inner, inner // headdim, headdim, cfg.ssm.state_size
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, device,
+               stacked: int = 0):
+    """Seeded Mamba2 layer weights in the reference's layout."""
+    d = cfg.d_model
+    inner, nheads, headdim, N = mamba_dims(cfg)
+    conv = cfg.ssm.conv_size
+    dt = torch_dtype(cfg.dtype)
+    pre = (stacked,) if stacked else ()
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": dense_init(gen, pre + (d, 2 * inner + 2 * N + nheads), dt,
+                              device),
+        "conv_w": (torch.randn(pre + (conv, inner), generator=gen,
+                               device=device) / math.sqrt(conv)).to(dt),
+        "A_log": torch.zeros(pre + (nheads,), **f32),
+        "D": torch.ones(pre + (nheads,), **f32),
+        "dt_bias": torch.zeros(pre + (nheads,), **f32),
+        "norm_w": torch.ones(pre + (inner,), dtype=dt, device=device),
+        "out_proj": dense_init(gen, pre + (inner, d), dt, device),
+    }
+
+
+def _mamba_split(p, x, cfg: ModelConfig):
+    inner, nheads, headdim, N = mamba_dims(cfg)
+    zxbcdt = matmul(x, p["in_proj"])
+    return (zxbcdt[..., :inner], zxbcdt[..., inner:2 * inner],
+            zxbcdt[..., 2 * inner:2 * inner + N],
+            zxbcdt[..., 2 * inner + N:2 * inner + 2 * N],
+            zxbcdt[..., 2 * inner + 2 * N:])
+
+
+def _causal_conv_seq(xc, conv_w, conv_state):
+    """Depthwise causal conv along T. xc: (B, T, inner); conv_state: (B,
+    K-1, inner) carry-in from previous tokens. Returns (y,
+    new_conv_state). The taps are summed in order in xc's dtype, as the
+    reference's Python ``sum`` does."""
+    K, T = conv_w.shape[0], xc.shape[1]
+    xfull = torch.cat([conv_state.to(xc.dtype), xc], dim=1)
+    y = xfull[:, 0:T] * conv_w[0].to(xc.dtype)
+    for i in range(1, K):
+        y = y + xfull[:, i:i + T] * conv_w[i].to(xc.dtype)
+    return F.silu(y.float()).to(xc.dtype), xfull[:, -(K - 1):]
+
+
+def mamba_seq(p, x, conv_state, ssm_state, cfg: ModelConfig):
+    """x: (B, T, d); conv_state: (B, K-1, inner); ssm_state: (B, H, hd, N)
+    f32. Returns (out, conv_state, ssm_state)."""
+    B, T, d = x.shape
+    inner, nheads, headdim, N = mamba_dims(cfg)
+    z, xc, Bc, Cc, dt = _mamba_split(p, x, cfg)
+    xc, conv_state = _causal_conv_seq(xc, p["conv_w"], conv_state)
+    dt = F.softplus(dt.float() + p["dt_bias"])                 # (B, T, H)
+    a = torch.exp(-torch.exp(p["A_log"]) * dt)                 # (B, T, H)
+    xh = xc.reshape(B, T, nheads, headdim).float()
+    Bf, Cf = Bc.float(), Cc.float()
+    dx = dt[..., None] * xh                                    # (B,T,H,hd)
+    h = ssm_state
+    ys = []
+    for t in range(T):
+        h = a[:, t, :, None, None] * h + \
+            dx[:, t, :, :, None] * Bf[:, t, None, None, :]
+        ys.append(torch.matmul(h, Cf[:, t, None, :, None])[..., 0])
+    y = torch.stack(ys, dim=1)                                 # (B,T,H,hd)
+    y = y + p["D"][None, None, :, None] * xh
+    y = y.reshape(B, T, inner) * F.silu(z.float())
+    y = rms_norm(y, p["norm_w"], cfg.rmsnorm_eps).to(x.dtype)
+    return matmul(y, p["out_proj"]), conv_state, h

@@ -1,22 +1,31 @@
-"""The dense decoder stack over a contiguous or a paged KV cache.
+"""Decoder stacks of the token-only families over their caches.
 
-``apply_dense_stack(params, x, positions, cfg, cache, mode) -> (y,
-cache)`` with ``mode`` "prefill", "decode" or "chunk" (chunked prefill).
-Layer parameters are stacked along a leading L axis, as in the reference;
-a Python loop over the layers takes the place of ``lax.scan``. A pipeline
-stage runs the stack on a slice of the layers (``stage_bounds``,
-``slice_stage_params``, ``slice_stage_cache``): the slices are views, so
-a stage writes its K/V into the full cache's tensors.
+``apply_<family>_stack(params, x, positions, cfg, cache, mode) -> (y,
+cache)`` with ``mode`` "prefill" or "decode", and "chunk" (chunked
+prefill) for the dense/MoE stack. Layer parameters are stacked along a
+leading L axis, as in the reference; a Python loop over the layers takes
+the place of ``lax.scan``.
 
-The contiguous cache is a dict ``{"len": (B,) int32, "pos": () int32,
-"k"/"v": (L, B, S_c, nkv, hd)}``; sliding-window archs keep a ring buffer
-(slot = pos % S_c). A paged cache (``engine/paged_cache.py``) holds
+* ``dense``/``moe``: :func:`apply_dense_stack` over a contiguous or a
+  paged KV cache, an MLP or a MoE FFN a layer. A pipeline stage runs it
+  on a slice of the layers (``stage_bounds``, ``slice_stage_params``,
+  ``slice_stage_cache``): the slices are views, so a stage writes its K/V
+  into the full cache's tensors.
+* ``ssm`` (RWKV-6): :func:`apply_rwkv_stack`, attention-free.
+* ``hybrid`` (Zamba2): :func:`apply_zamba_stack`, Mamba2 layers with one
+  weight-shared attention block before every group of ``attn_every``.
+
+The contiguous cache is a dict ``{"len": (B,) int32, "pos": () int32}``
+plus the family's leaves (:func:`init_cache`), every one (L|G, B, ...)
+with the batch on axis 1; sliding-window archs keep a ring buffer (slot
+= pos % S_c). A paged cache (``engine/paged_cache.py``) holds
 ``"k_pool"/"v_pool": (L, NB+1, bs, nkv, hd)`` and a ``"block_table"``
 instead, and serves decode and chunk mode: each layer gathers its
 contiguous block view, runs the same cached attention over it, and
 scatters the new entries into the pool. Unlike the reference's immutable
-arrays, K/V entries are written IN PLACE (the cache is the largest state
-the engine holds); ``len``/``pos`` are replaced, not mutated.
+arrays, K/V entries and recurrent states are written IN PLACE (the cache
+is the largest state the engine holds); ``len``/``pos`` are replaced,
+not mutated.
 """
 from __future__ import annotations
 
@@ -27,14 +36,14 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models.attention import (_project_qkv, attention_block,
                                          flat_block_indices,
-                                         gather_block_view, scatter_block_kv)
-from repro_torch.models.layers import (apply_mlp, dense_init, rms_norm,
+                                         gather_block_view, init_attention,
+                                         scatter_block_kv)
+from repro_torch.models.layers import (apply_mlp, init_mlp, rms_norm,
                                       rope_tables, torch_dtype)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP 'Modules to port' item 4)")
+from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.ssm import (init_mamba, init_rwkv, mamba_dims,
+                                    mamba_seq, rwkv_channel_mix_seq,
+                                    rwkv_time_mix_seq)
 
 
 # ---------------------------------------------------------------------------
@@ -50,21 +59,42 @@ def cache_len_for(cfg: ModelConfig, seq_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                window: Optional[int] = None, dtype=None, device="cpu"):
-    """The decode/prefill cache of a dense decoder. ``seq_len`` is the
+    """The decode/prefill cache of ``cfg``'s family. ``seq_len`` is the
     maximum context length; sliding-window archs allocate only ``window``
-    slots (ring buffer)."""
-    if cfg.family != "dense":
-        raise _unported(f"the {cfg.family!r} family's cache")
+    slots (ring buffer). RWKV keeps its f32 wkv state and the two token
+    shifts; Zamba2 its f32 SSM state, the conv carry and the K/V of its
+    G = ceil(L / attn_every) shared-attention sites, over a window of
+    4096 unless the arch or the caller sets one."""
     dtype = dtype or torch_dtype(cfg.dtype)
-    Sc = cache_len_for(cfg, seq_len, window)
-    shape = (cfg.num_layers, batch, Sc, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {
-        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    hd, nkv, d, L = (cfg.resolved_head_dim, cfg.num_kv_heads, cfg.d_model,
+                     cfg.num_layers)
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt,
+                                                 device=device)
+    cache = {"len": zeros(batch, dt=torch.int32),
+             "pos": zeros(dt=torch.int32)}
+    if cfg.family in ("dense", "moe"):
+        Sc = cache_len_for(cfg, seq_len, window)
+        cache["k"] = zeros(L, batch, Sc, nkv, hd)
+        cache["v"] = zeros(L, batch, Sc, nkv, hd)
+    elif cfg.family == "ssm":        # rwkv6
+        hs = cfg.ssm.rwkv_head_size
+        cache["ssm"] = zeros(L, batch, d // hs, hs, hs, dt=torch.float32)
+        cache["x_last_t"] = zeros(L, batch, d)
+        cache["x_last_c"] = zeros(L, batch, d)
+    elif cfg.family == "hybrid":     # zamba2: mamba states + shared-attn kv
+        inner, nheads, headdim, N = mamba_dims(cfg)
+        G = -(-L // cfg.hybrid.attn_every)
+        Sc = cache_len_for(cfg, seq_len,
+                           window or cfg.sliding_window or 4096)
+        cache["ssm"] = zeros(L, batch, nheads, headdim, N, dt=torch.float32)
+        cache["conv"] = zeros(L, batch, cfg.ssm.conv_size - 1, inner)
+        cache["k"] = zeros(G, batch, Sc, nkv, hd)
+        cache["v"] = zeros(G, batch, Sc, nkv, hd)
+    else:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family's cache is not ported yet (ROADMAP "
+            "'Modules to port' item 4)")
+    return cache
 
 
 def _write_kv(cache_k_l, cache_v_l, k, v, lens, mode: str,
@@ -135,10 +165,11 @@ def _slice_layers(tree, lo: int, hi: int):
 
 
 def slice_stage_params(stack_params: dict, lo: int, hi: int, *, last: bool):
-    """A stage's slice of a dense stack's parameters: every stacked
-    per-layer leaf keeps rows [lo, hi) (a view); ``final_ln`` ships only
-    with the last stage (it runs after the full depth). The stages run one
-    after another compose to the full stack exactly."""
+    """A stage's slice of a dense/MoE stack's parameters: every stacked
+    per-layer leaf (the ``moe`` subtree's too) keeps rows [lo, hi) (a
+    view); ``final_ln`` ships only with the last stage (it runs after the
+    full depth). The stages run one after another compose to the full
+    stack exactly."""
     out = {k: _slice_layers(v, lo, hi)
            for k, v in stack_params.items() if k != "final_ln"}
     if last:
@@ -164,25 +195,19 @@ def slice_stage_cache(cache: dict, lo: int, hi: int):
 
 
 def init_dense_stack(gen: torch.Generator, cfg: ModelConfig, device):
-    """Seeded weights of the dense stack in the reference's layout: every
-    per-layer leaf stacked on a leading L axis, weights (in, out)."""
-    if cfg.family != "dense":
-        raise _unported(f"the {cfg.family!r} family's stack")
+    """Seeded weights of the dense/MoE stack in the reference's layout:
+    every per-layer leaf stacked on a leading L axis, weights (in, out)."""
     dt = torch_dtype(cfg.dtype)
-    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-    hd, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    mk = lambda *shape: dense_init(gen, shape, dt, device)
+    L, d = cfg.num_layers, cfg.d_model
     ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)
-    attn = {"w_q": mk(L, d, nh * hd), "w_k": mk(L, d, nkv * hd),
-            "w_v": mk(L, d, nkv * hd), "w_o": mk(L, nh * hd, d)}
-    if cfg.qk_norm:
-        attn["q_norm"] = ones(L, hd)
-        attn["k_norm"] = ones(L, hd)
-    mlp = {"w_up": mk(L, d, f), "w_down": mk(L, f, d)}
-    if cfg.act == "silu":
-        mlp["w_gate"] = mk(L, d, f)
-    return {"ln1": ones(L, d), "ln2": ones(L, d), "attn": attn, "mlp": mlp,
-            "final_ln": ones(d)}
+    p = {"ln1": ones(L, d), "ln2": ones(L, d),
+         "attn": init_attention(gen, cfg, device, stacked=L)}
+    if cfg.moe is not None:
+        p["moe"] = init_moe(gen, cfg, device, stacked=L)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, device, stacked=L)
+    p["final_ln"] = ones(d)
+    return p
 
 
 def _layer(tree, i: int):
@@ -190,6 +215,14 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _bump_len(cache: dict, S_new: int) -> dict:
+    """A new dict with ``len`` and ``pos`` advanced by ``S_new``."""
+    cache = dict(cache)
+    cache["len"] = cache["len"] + S_new
+    cache["pos"] = cache["pos"] + S_new
+    return cache
 
 
 def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
@@ -206,8 +239,6 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
     written; ``chunk_counts`` (B,) gives each row's valid tokens in the
     slab (the paged pool scatter needs them; the contiguous slab write
     does not)."""
-    if cfg.family != "dense":
-        raise _unported(f"the {cfg.family!r} family's stack")
     eps = cfg.rmsnorm_eps
     win = cfg.sliding_window if window is None else window
     lens0 = cache["len"]
@@ -265,11 +296,119 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
         else:
             raise ValueError(f"unknown stack mode {mode!r}")
         x = x + attn_out
-        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"], eps), cfg.act)
-    cache = dict(cache)
-    S_new = positions.shape[-1]
-    cache["len"] = cache["len"] + S_new
-    cache["pos"] = cache["pos"] + S_new
+        h2 = rms_norm(x, lp["ln2"], eps)
+        if cfg.moe is not None:
+            ff = apply_moe(lp["moe"], h2, cfg)
+        else:
+            ff = apply_mlp(lp["mlp"], h2, cfg.act)
+        x = x + ff
+    cache = _bump_len(cache, positions.shape[-1])
     if final_norm:
         x = rms_norm(x, params["final_ln"], eps)
     return x, cache
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 stack
+# ---------------------------------------------------------------------------
+
+
+def init_rwkv_stack(gen: torch.Generator, cfg: ModelConfig, device):
+    """Seeded RWKV-6 stack weights in the reference's layout."""
+    dt = torch_dtype(cfg.dtype)
+    L, d = cfg.num_layers, cfg.d_model
+    ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)
+    return {"ln1": ones(L, d), "ln2": ones(L, d),
+            "layers": init_rwkv(gen, cfg, device, stacked=L),
+            "final_ln": ones(d)}
+
+
+def apply_rwkv_stack(params, x, positions, cfg: ModelConfig, cache,
+                     mode: str, window: Optional[int] = None):
+    """x: (B, S, d). Prefill and decode alike run the time-mix recurrence
+    over the S tokens from the cached state (a right-padded prompt's pad
+    tokens are scanned into it, as in the reference). Returns (y, cache),
+    the states written in place."""
+    assert mode in ("prefill", "decode"), \
+        f"the RWKV stack runs prefill and decode, not {mode!r}"
+    eps = cfg.rmsnorm_eps
+    lp_all = params["layers"]
+    for i in range(params["ln1"].shape[0]):
+        lp = _layer(lp_all, i)
+        h = rms_norm(x, params["ln1"][i], eps)
+        tm, lt, st = rwkv_time_mix_seq(lp, h, cache["x_last_t"][i],
+                                       cache["ssm"][i], cfg)
+        x = x + tm
+        h2 = rms_norm(x, params["ln2"][i], eps)
+        cm, lc = rwkv_channel_mix_seq(lp, h2, cache["x_last_c"][i])
+        x = x + cm
+        cache["ssm"][i].copy_(st)
+        cache["x_last_t"][i].copy_(lt)
+        cache["x_last_c"][i].copy_(lc)
+    return rms_norm(x, params["final_ln"], eps), \
+        _bump_len(cache, x.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 hybrid stack: groups of mamba layers + a shared attention block
+# ---------------------------------------------------------------------------
+
+
+def init_zamba_stack(gen: torch.Generator, cfg: ModelConfig, device):
+    """Seeded Zamba2 stack weights in the reference's layout: the Mamba2
+    layers stacked, one shared attention block and MLP."""
+    dt = torch_dtype(cfg.dtype)
+    L, d = cfg.num_layers, cfg.d_model
+    ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)
+    return {"ln_m": ones(L, d),
+            "mamba": init_mamba(gen, cfg, device, stacked=L),
+            "shared_ln1": ones(d), "shared_ln2": ones(d),
+            "shared_attn": init_attention(gen, cfg, device),
+            "shared_mlp": init_mlp(gen, cfg, device),
+            "final_ln": ones(d)}
+
+
+def apply_zamba_stack(params, x, positions, cfg: ModelConfig, cache,
+                      mode: str, window: Optional[int] = None):
+    """x: (B, S, d). Before each group of ``attn_every`` Mamba2 layers the
+    shared attention block (site g of the K/V cache) and the shared MLP
+    run; the attention is a ring buffer over the window (4096 unless the
+    arch or ``window`` sets one). Returns (y, cache), the states written
+    in place."""
+    assert mode in ("prefill", "decode"), \
+        f"the Zamba2 stack runs prefill and decode, not {mode!r}"
+    eps = cfg.rmsnorm_eps
+    L, every = cfg.num_layers, cfg.hybrid.attn_every
+    win = window if window is not None else (cfg.sliding_window or 4096)
+    lens0 = cache["len"]
+    rt = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) \
+        if cfg.rope_theta > 0 else None
+    attn_p = params["shared_attn"]
+    for g, lo in enumerate(range(0, L, every)):
+        h = rms_norm(x, params["shared_ln1"], eps)
+        ck, cv = cache["k"][g], cache["v"][g]
+        if mode == "decode":
+            # write first so the token attends to itself
+            qkv = _project_qkv(attn_p, h, cfg, positions, rt)
+            _write_kv(ck, cv, qkv[1], qkv[2], lens0, "decode")
+            attn_out, _, _ = attention_block(
+                attn_p, h, cfg, positions, cache_k=ck, cache_v=cv,
+                kv_len=lens0 + 1, mode="decode", window=win, qkv=qkv)
+        else:
+            attn_out, k, v = attention_block(attn_p, h, cfg, positions,
+                                             mode="train", window=win,
+                                             rope_tables=rt)
+            _write_kv(ck, cv, k, v, lens0, "prefill")
+        x = x + attn_out
+        x = x + apply_mlp(params["shared_mlp"],
+                          rms_norm(x, params["shared_ln2"], eps), cfg.act)
+        for i in range(lo, min(lo + every, L)):
+            h = rms_norm(x, params["ln_m"][i], eps)
+            out, conv, ssm = mamba_seq(_layer(params["mamba"], i), h,
+                                       cache["conv"][i], cache["ssm"][i],
+                                       cfg)
+            x = x + out
+            cache["conv"][i].copy_(conv)
+            cache["ssm"][i].copy_(ssm)
+    return rms_norm(x, params["final_ln"], eps), \
+        _bump_len(cache, x.shape[1])

@@ -540,3 +540,66 @@ def test_handoff_identity_on_cuda(cache, algorithm, chunk):
     assert hs.migrated == len(moved)
     assert [(r.output, r.finish_reason) for r in moved] == \
         [(r.output, r.finish_reason) for r in single]
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "llama4-maverick-400b-a17b", "rwkv6-3b",
+                                  "zamba2-1.2b"])
+def test_family_forward_on_cuda_matches_cpu(arch):
+    """Reduced f32 families (granite at a capacity factor that drops
+    pairs): right-padded prefill + 3 decode steps, logits and every cache
+    leaf at 1e-4."""
+    dev = _cuda()
+    cfg = get_arch(arch).reduced()
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=0.5))
+    model = Model(cfg)
+    params = model.init(seed=5, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen,
+                         dtype=torch.int32)
+    lens = torch.tensor([20, 11, 7], dtype=torch.int32)
+    steps = torch.randint(0, cfg.vocab_size, (3, 3), generator=gen,
+                          dtype=torch.int32)
+    outs = []
+    for d, p in (("cpu", params), (dev, _to(params, dev))):
+        cache = model.init_cache(3, 32, device=d)
+        logits, cache = model.prefill(p, {"tokens": toks.to(d)}, cache,
+                                      true_lens=lens.to(d))
+        seq = [logits.cpu()]
+        for nxt in steps:
+            logits, cache = model.decode_step(p, nxt.to(d), cache)
+            seq.append(logits.cpu())
+        outs.append((seq, {k: v.cpu() for k, v in cache.items()}))
+    (a, ca), (b, cb) = outs
+    for x, y in zip(a, b):
+        torch.testing.assert_close(y, x, rtol=1e-4, atol=1e-4)
+    for k in ca:
+        torch.testing.assert_close(cb[k], ca[k], rtol=1e-4, atol=1e-4)
+
+
+def test_moe_decode_steps_make_no_synchronising_call():
+    """Reduced granite (``shvs``, overlapped): steady-state decode steps,
+    the router's sort and the capacity dispatch included, never block the
+    host on the stream."""
+    dev = _cuda()
+    cfg = get_arch("granite-moe-1b-a400m").reduced()
+    eng = Engine(cfg, Model(cfg).init(seed=0, device=dev), EngineConfig(
+        max_batch=4, max_seq_len=64, algorithm="shvs",
+        shvs=SHVSConfig(hot_size=128), k_cap=64), device=dev)
+    eng.submit(synth_requests(4, cfg.vocab_size, 12, seed=0))
+    eng.step()                  # admission reads the first tokens back
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.flush()
+    eng.close()

@@ -301,10 +301,18 @@ def test_oversized_request_rejected_at_submit(model4):
 
 
 def test_moe_family_names_its_roadmap_item(model4):
-    _, _, _, tp = model4
-    with pytest.raises(NotImplementedError, match="item 4"):
-        PipelineEngine(get_arch("granite-moe-1b-a400m").reduced(), tp,
+    """The MoE family is served (its streams are held to the reference's
+    in ``test_torch_moe.py``); a recurrent family is refused with the
+    reference's message, and an unported one names ROADMAP item 4."""
+    cfg = get_arch("granite-moe-1b-a400m").reduced()
+    eng = PipelineEngine(cfg, TModel(cfg).init(seed=0, device="cpu"),
+                         PipelineConfig(**ENGINE), device="cpu")
+    eng.close()
+    with pytest.raises(AssertionError, match="dense/moe decoders only"):
+        PipelineEngine(get_arch("rwkv6-3b").reduced(), None,
                        PipelineConfig(**ENGINE), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        TModel(get_arch("internvl2-2b").reduced())
 
 
 # ---------------------------------------------------------------------------
