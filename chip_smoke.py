@@ -138,8 +138,37 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    launches a layer, the weight-bytes floor and ``Model.prefill`` ms at B =
    8, Sp = 32).
 
+10. the training path, the VLM and audio inputs and chunked attention,
+   at full width (bf16 seeded weights): (a) smollm-360m (32 L, V = 49152)
+   trained by ``Trainer`` for 25 steps on seeded synthetic Zipf batches
+   (B = 8, S = 128, remat, AdamW with f32 moments, the reference's
+   ``TrainConfig`` at rate 1e-3 and warmup 5): per step the loss, the
+   gradient norm, ms and tokens/s; the peak memory and, over one more
+   step under torch.profiler, launches and device time a step; every
+   loss finite and the last below the first; the first batch's loss
+   equal and its gradients within ``REMAT_GRAD_TOL`` with remat off and
+   on; a checkpoint saved and restored bit for bit; the restored and the
+   in-memory parameters serve 8 greedy requests through ``Engine``
+   (``shvs``, ``fused``) with equal streams and the decision kernels
+   launched; (b) one train step at B = 1, S = 4096 that reaches
+   ``attend_chunked`` in every layer's forward and recompute (ms, peak
+   memory), and a prefill at S = 4608 in f32, chunked against
+   ``attend_full``: the logits' and the K/V cache's max relative error
+   below ``CHUNK_REL_TOL`` and argmax equal where the top-two gap is
+   clear; (c) internvl2-2b (24 L, d 2048, V = 92553, untied head) served
+   text only through ``Engine`` (``shvs`` and ``fused``: two runs equal,
+   the kernels launched at V = 92553, greedy ≡ ``reference`` up to the gap
+   rule), 256 seeded patch embeddings + 32 tokens through
+   ``Model.prefill`` and 16 decode steps drawn by ``DecisionPlane.step``,
+   and a train step with the patches; (d) whisper-base (6 + 6 L, d 512, V
+   = 51865): the encoder's ms over 1,500 seeded frames, prefill + 16
+   decode steps drawn by ``DecisionPlane.step``, prefill(21) + 3 decode
+   against prefill(24) in f32 and bf16 (phase 9 (b)'s check), a train
+   step with the frames, and the engine's refusal (ROADMAP Fault 7).
+
 ``python3 chip_smoke.py --families-only`` builds the kernels and runs
-phases 3 and 9 alone, printing one JSON line.
+phases 3 and 9 alone, printing one JSON line. ``--train-only`` runs
+phase 10 alone the same way.
 
 ``python3 chip_smoke.py --host-only`` builds the kernels and runs phase 5's
 ``shvs`` rows on the device and in the host pool, in turns, and the pool
@@ -992,6 +1021,16 @@ def step_profile(eng, reqs):
             eng.step()
         torch.cuda.synchronize()
     eng.flush()
+    busy_ms, launches, ours = profile_totals(prof, n_prof)
+    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "launches_per_step": launches,
+            "decision_kernels_ms_per_step": ours}, window
+
+
+def profile_totals(prof, n):
+    """From a torch.profiler run over ``n`` steps: device busy ms, kernel
+    launches and the decision kernels' ms, each a step."""
     busy_us, launches, ours = 0.0, 0, {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", None)
@@ -1005,12 +1044,21 @@ def step_profile(eng, reqs):
             for k in ("penalty_scale", "shvs_masses", "fused_sample",
                       "gumbel_argmax"):
                 if evt.key.startswith(k + "_"):
-                    ours[k] = ours.get(k, 0.0) + dev_us / n_prof / 1e3
-    busy_ms = busy_us / n_prof / 1e3
-    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms,
-            "launches_per_step": launches / n_prof,
-            "decision_kernels_ms_per_step": ours}, window
+                    ours[k] = ours.get(k, 0.0) + dev_us / n / 1e3
+    return busy_us / n / 1e3, launches / n, ours
+
+
+def top_kernels(prof, n, k=8):
+    """The ``k`` kernels with the most device time in a torch.profiler
+    run over ``n`` steps: (name, ms a step, calls a step)."""
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        if dev_us > 0 and not evt.key.startswith("aten::"):
+            rows.append((evt.key[:80], dev_us / n / 1e3, evt.count / n))
+    return sorted(rows, key=lambda r: -r[1])[:k]
 
 
 def profile_steps(dev, card, names=None):
@@ -1856,7 +1904,7 @@ def weight_floor(cfg, params):
     return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def family_consistency(model, params, dev, card):
+def family_consistency(model, params, dev, card, extra=None):
     """Phase 9 (b): prefill(T-3) + 3 teacher-forced decode steps against
     prefill(T), unpadded, through ``Model`` (batch 2, T = 24), in bf16 and
     with the weights widened to f32: the max relative error of the
@@ -1878,9 +1926,10 @@ def family_consistency(model, params, dev, card):
     for dtype in ("bfloat16", "float32"):
         m = Model(dataclasses.replace(cfg, dtype=dtype))
         p = params if dtype == "bfloat16" else _cast(params, torch.float32)
-        full, _ = m.prefill(p, {"tokens": toks},
+        full, _ = m.prefill(p, {"tokens": toks, **(extra or {})},
                             m.init_cache(B, 256, device=dev))
-        logits, cache = m.prefill(p, {"tokens": toks[:, :T - 3]},
+        logits, cache = m.prefill(p, {"tokens": toks[:, :T - 3],
+                                      **(extra or {})},
                                   m.init_cache(B, 256, device=dev))
         for t in range(T - 3, T):
             logits, cache = m.decode_step(p, toks[:, t], cache)
@@ -2165,6 +2214,493 @@ def families_only(dev, card):
     return 0
 
 
+# phase 10: the training path, and the VLM and audio inputs, at full width
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 25, 8, 128
+LONG_TRAIN_S, LONG_PREFILL_S = 4096, 4608   # 4608: no multiple of 512
+REMAT_GRAD_TOL = 5e-2   # bf16 gradients; the embedding's backward adds
+#                         with atomics, so its sums may round differently
+CHUNK_REL_TOL = 1e-4    # f32 logits, blocked vs direct softmax sums
+# (L, d, V) of the phase's archs, checked against their configs
+TRAIN_ARCHS = {"smollm-360m": (32, 960, 49152),
+               "internvl2-2b": (24, 2048, 92553),
+               "whisper-base": (6, 512, 51865)}
+PATCHES, FRAMES = 256, 1500
+
+
+def full_arch(name):
+    """The registered full-width config of ``name``, bf16, its widths
+    checked."""
+    from repro_torch.config import get_arch
+    cfg = get_arch(name)
+    assert (cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.dtype) == \
+        TRAIN_ARCHS[name] + ("bfloat16",), name
+    return cfg
+
+
+def train_config():
+    """The reference's ``TrainConfig`` (remat on, clip 1.0, z-loss 1e-4,
+    decay 0.1) with a short warmup and a larger rate, so 25 steps move
+    the loss."""
+    from repro_torch.config import TrainConfig
+    return TrainConfig(learning_rate=1e-3, warmup_steps=5)
+
+
+def gib():
+    """Peak device memory since the last :func:`reset_peak`, GiB."""
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def reset_peak():
+    """Synchronise, reset the peak, and return the GiB allocated now (what
+    earlier phases still hold, counted in every later peak)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """``module.name`` set to ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def counted(module, name):
+    """``swapped`` with a wrapper that counts the calls in ``calls[0]``."""
+    fn, calls = getattr(module, name), [0]
+
+    def wrapper(*a, **kw):
+        calls[0] += 1
+        return fn(*a, **kw)
+    return swapped(module, name, wrapper), calls
+
+
+def to_dev(batch, dev):
+    import torch
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def leaves_equal(a, b):
+    """Every leaf of two trees (or ``AdamWState``s) equal bit for bit."""
+    import torch
+    from repro_torch.training.optimizer import tree_leaves
+    if isinstance(a, tuple):
+        return all(leaves_equal(x, y) for x, y in zip(a, b))
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.view(torch.int16), y.view(
+            torch.int16)) if x.dtype == torch.bfloat16 else torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def train_step_once(model, params, batch, dev, card, name):
+    """One ``make_train_step`` step (AdamW from fresh moments) on a batch
+    of device tensors: its ms (host clock around a synchronise), peak
+    memory and loss; the loss and gradient norm must be finite."""
+    import math
+    import torch
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import make_train_step
+    step = make_train_step(model, train_config())
+    opt = adamw_init(params)
+    base = reset_peak()
+    t0 = time.perf_counter()
+    new, opt, m = step(params, opt, batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    rec = {"ms": (time.perf_counter() - t0) * 1e3, "peak_gib": gib(),
+           "allocated_before_gib": base, "loss": loss, "grad_norm": gnorm,
+           "shape": {k: list(v.shape) for k, v in batch.items()}}
+    del new, opt
+    assert math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0, \
+        (name, rec)
+    print(f"{name} train step {rec['shape']}: {rec['ms']:.1f} ms, peak "
+          f"{rec['peak_gib']:.2f} GiB ({base:.2f} GiB allocated before), "
+          f"loss {loss:.4f}, grad norm {gnorm:.4f} [{card}]")
+    return rec
+
+
+def plane_decode(model, params, batch, dev, card, name, seq, new=16):
+    """``Model.prefill`` of ``batch`` (B rows, its patches or frames
+    included) then ``new`` decode steps whose tokens ``DecisionPlane.step``
+    draws (``shvs``, H = 1024, k_cap 256, seeded top-k/top-p rows with a
+    repetition penalty), the launch counters set to 0 just before and read
+    just after: the decision kernels launch every step."""
+    import torch
+    from repro_torch.config import SamplingConfig, SHVSConfig
+    from repro_torch.core.decision_plane import DecisionPlane
+    from repro_torch.engine.engine import SlotParams
+    from repro_torch.kernels import ops
+    V = model.cfg.vocab_size
+    B = batch["tokens"].shape[0]
+    plane = DecisionPlane(V, algorithm="shvs",
+                          shvs=SHVSConfig(hot_size=H_MAIN), k_cap=K_CAP,
+                          seed=0, device=dev)
+    sp = SlotParams(B, V, dev)
+    for b in range(B):
+        sp.set_row(b, SamplingConfig(temperature=0.8, top_k=40, top_p=0.95,
+                                     repetition_penalty=1.1, seed=b))
+    state = plane.init_state(B)
+    cache = model.init_cache(B, seq, device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    drawn = []
+    for s in range(new):
+        tokens, state, _ = plane.step(logits, state, sp.as_params(), s)
+        drawn.append(tokens)
+        logits, cache = model.decode_step(params, tokens, cache)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    out = torch.stack(drawn, 1)
+    assert bool(((out >= 0) & (out < V)).all()), name
+    assert bool(torch.isfinite(logits).all()), name
+    assert counts["penalty_scale"] >= new and counts["shvs_masses"] >= new, \
+        (name, counts)
+    rec = {"prefill_ms": (t1 - t0) * 1e3,
+           "decode_ms_per_step": (t2 - t1) / new * 1e3,
+           "len": cache["len"].tolist(), "launches": counts,
+           "tokens_row0": out[0].tolist()}
+    print(f"{name}: prefill {rec['prefill_ms']:.1f} ms, {new} decode steps "
+          f"drawn through DecisionPlane.step {rec['decode_ms_per_step']:.2f} "
+          f"ms each, lengths {rec['len']}, launches {counts} [{card}]")
+    return rec
+
+
+def train_smollm(dev, card):
+    """Phase 10 (a): full-width smollm-360m trained for 25 steps from its
+    seeded init; returns the record and the trainer."""
+    import math
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.model import Model
+    from repro_torch.training import Trainer
+    from repro_torch.training.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.training.optimizer import adamw_init, tree_leaves
+    from repro_torch.training.train_loop import grads_of
+    from repro_torch.launch.serve import synth_requests
+    cfg = full_arch("smollm-360m")
+    V = cfg.vocab_size
+    tc = train_config()
+    tr = Trainer(cfg, tc, seed=0, device=dev)
+    ds = SyntheticDataset(DataConfig(vocab_size=V, seq_len=TRAIN_S,
+                                     batch_size=TRAIN_B, seed=0))
+    batches = [ds.sample_batch() for _ in range(TRAIN_STEPS + 1)]
+    out = {"parameters": sum(t.numel() for t in tree_leaves(tr.params))}
+    # remat off and on, the first batch, before any step
+    b0 = to_dev(batches[0], dev)
+    la, _, ga = grads_of(tr.model, tr.params, b0, tc, remat=False)
+    lb, _, gb = grads_of(tr.model, tr.params, b0, tc, remat=True)
+    worst = max(((x.float() - y.float()).abs().max() /
+                 x.float().abs().max().clamp(min=1e-30)).item()
+                for x, y in zip(tree_leaves(ga), tree_leaves(gb)))
+    del ga, gb
+    out["remat"] = {"loss_off": float(la), "loss_on": float(lb),
+                    "max_rel_grad_diff": worst}
+    assert float(la) == float(lb) and worst <= REMAT_GRAD_TOL, out["remat"]
+    print(f"smollm-360m remat: loss {float(la):.6f} off, {float(lb):.6f} on; "
+          f"max leaf-relative gradient difference {worst:.3g} (tolerance "
+          f"{REMAT_GRAD_TOL}) [{card}]")
+    # 25 logged steps: each step's metrics read back, so the cumulative
+    # elapsed time of the history steps between synchronisations
+    out["allocated_before_gib"] = reset_peak()
+    hist = tr.fit(iter(batches[:TRAIN_STEPS]), steps=TRAIN_STEPS,
+                  log_every=1, log_fn=None)
+    out["peak_gib"] = gib()
+    prev, steps = 0.0, []
+    for h in hist:
+        ms = (h["elapsed_s"] - prev) * 1e3
+        prev = h["elapsed_s"]
+        steps.append({"step": h["step"], "loss": h["loss"],
+                      "grad_norm": h["grad_norm"], "lr": h["lr"], "ms": ms,
+                      "tokens_per_s": TRAIN_B * TRAIN_S / ms * 1e3})
+        print(f"train step {h['step']}: loss {h['loss']:.4f}, grad norm "
+              f"{h['grad_norm']:.4f}, {ms:.1f} ms, "
+              f"{steps[-1]['tokens_per_s']:.0f} tokens/s [{card}]")
+    out["steps"] = steps
+    losses = [h["loss"] for h in hist]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    # one more step under the profiler: launches and device time
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.fit(iter(batches[TRAIN_STEPS:]), steps=1, log_every=1,
+               log_fn=None)
+        torch.cuda.synchronize()
+    busy, launches, _ = profile_totals(prof, 1)
+    steady = sorted(x["ms"] for x in steps[1:])[len(steps[1:]) // 2]
+    out["profile"] = {"launches_per_step": launches,
+                      "device_busy_ms_per_step": busy,
+                      "median_step_ms": steady,
+                      "idle_share": 1.0 - busy / steady,
+                      "top_kernels": top_kernels(prof, 1)}
+    for name, ms, calls in out["profile"]["top_kernels"]:
+        print(f"  train step kernel {name}: {ms:.2f} ms, {calls:.0f} calls")
+    print(f"smollm-360m training: peak {out['peak_gib']:.2f} GiB "
+          f"(max_memory_allocated; {out['allocated_before_gib']:.2f} GiB "
+          f"allocated before the first step), median step {steady:.1f} ms, "
+          f"{launches:.0f} launches a step, device busy {busy:.1f} ms a "
+          f"step (idle share {1 - busy / steady:.1%}) [{card}]")
+    # checkpoint: saved, restored into another seed's tree, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, tr.params, tr.opt_state, step=TRAIN_STEPS + 1)
+        t1 = time.perf_counter()
+        tmpl = Model(cfg).init(seed=1, device=dev)
+        params, opt, step = restore_checkpoint(tmp, tmpl, adamw_init(tmpl))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    del tmpl
+    assert step == TRAIN_STEPS + 1 and leaves_equal(params, tr.params) \
+        and leaves_equal(opt, tr.opt_state), "checkpoint round trip"
+    out["checkpoint"] = {"save_s": t1 - t0, "restore_s": t2 - t1}
+    print(f"checkpoint: saved in {t1 - t0:.1f} s, restored in {t2 - t1:.1f} "
+          f"s, parameters and AdamW state equal bit for bit")
+    # the restored tree serves, as the in-memory one does
+    for algorithm in ("shvs", "fused"):
+        streams = {}
+        for name, p in (("restored", params), ("in_memory", tr.params)):
+            eng = family_engine(cfg, algorithm, dev, p)
+            reqs = synth_requests(8, V, 16, greedy=True)
+            rep = family_serve(eng, reqs, f"trained smollm-360m {name} "
+                               f"{algorithm} greedy", card)
+            eng.close()
+            streams[name] = [r.output for r in reqs]
+            out[f"serve_{algorithm}_{name}"] = rep
+        launched = rep["launches"]
+        assert streams["restored"] == streams["in_memory"], algorithm
+        assert (launched["fused_sample"] if algorithm == "fused" else
+                min(launched["penalty_scale"], launched["shvs_masses"])) \
+            > 0, launched
+    print("trained smollm-360m: restored and in-memory parameters serve "
+          "equal greedy streams (shvs, fused)")
+    del params, opt
+    return out, tr
+
+
+def long_sequence(tr, dev, card):
+    """Phase 10 (b): a train step at B = 1, S = 4096 through
+    ``attend_chunked``, then a prefill at S = 4608 in f32, chunked against
+    ``attend_full``."""
+    import dataclasses
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    cfg = tr.model.cfg
+    V = cfg.vocab_size
+    out = {}
+    batch = to_dev(SyntheticDataset(DataConfig(
+        vocab_size=V, seq_len=LONG_TRAIN_S, batch_size=1, seed=1))
+        .sample_batch(), dev)
+    ctx, calls = counted(attention, "attend_chunked")
+    with ctx:
+        out["train_step"] = train_step_once(tr.model, tr.params, batch, dev,
+                                            card, "smollm-360m S=4096")
+    # the forward, the recompute, once a layer each
+    assert calls[0] == 2 * cfg.num_layers, calls
+    out["train_step"]["attend_chunked_calls"] = calls[0]
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"))
+    p32 = _cast(tr.params, torch.float32)
+    toks = torch.as_tensor(SyntheticDataset(DataConfig(
+        vocab_size=V, seq_len=LONG_PREFILL_S, batch_size=2, seed=2))
+        .sample_batch()["tokens"], device=dev)
+    runs = {}
+    for name in ("chunked", "full"):
+        plain = attention.attend_full if name == "full" else \
+            attention.attend_chunked
+        with swapped(attention, "attend_chunked", plain):
+            cache = m32.init_cache(2, LONG_PREFILL_S, device=dev)
+            reset_peak()
+            t0 = time.perf_counter()
+            logits, cache = m32.prefill(p32, {"tokens": toks}, cache)
+            torch.cuda.synchronize()
+            runs[name] = (logits, cache, (time.perf_counter() - t0) * 1e3,
+                          gib())
+    (lc, cc, ms_c, gb_c), (lf, cf, ms_f, gb_f) = runs["chunked"], runs["full"]
+    rel = ((lc - lf).abs().max() / lf.abs().max()).item()
+    kv_rel = max(((cc[k] - cf[k]).abs().max() / cf[k].abs().max()).item()
+                 for k in ("k", "v"))
+    top = lf.topk(2, dim=-1).values
+    clear = (top[:, 0] - top[:, 1]) >= GAP_CLEAR
+    same = lc.argmax(-1) == lf.argmax(-1)
+    out["prefill_4608_f32"] = {
+        "max_rel_err_logits": rel, "max_rel_err_kv": kv_rel,
+        "argmax_equal": int(same.sum()), "clear_rows": int(clear.sum()),
+        "chunked_ms": ms_c, "full_ms": ms_f, "chunked_peak_gib": gb_c,
+        "full_peak_gib": gb_f}
+    print(f"prefill S={LONG_PREFILL_S} f32 (B=2): chunked vs attend_full max "
+          f"rel err logits {rel:.3g}, K/V {kv_rel:.3g}; argmax equal on "
+          f"{int(same.sum())}/2 rows ({int(clear.sum())} with a clear gap); "
+          f"chunked {ms_c:.1f} ms, peak {gb_c:.2f} GiB; full {ms_f:.1f} ms, "
+          f"peak {gb_f:.2f} GiB [{card}]")
+    assert rel < CHUNK_REL_TOL and kv_rel < CHUNK_REL_TOL, out
+    assert bool((same | ~clear).all()), out
+    del runs, p32, lc, lf, cc, cf
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_phase(dev, card):
+    """Phase 10 (c): internvl2-2b, served text only, then its patch
+    embeddings through ``Model.prefill`` and a train step."""
+    import torch
+    from repro_torch.launch.serve import serve_batch, synth_requests
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = full_arch("internvl2-2b")
+    assert not cfg.tie_embeddings
+    V = cfg.vocab_size
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    out = {"parameters": sum(t.numel() for t in tree_leaves(params))}
+    print(f"internvl2-2b full width: {out['parameters']} parameters (bf16, "
+          f"untied head)")
+    greedy = {}
+    for algorithm in ("shvs", "fused"):
+        eng = family_engine(cfg, algorithm, dev, params)
+        serve_batch(eng, synth_requests(2, V, 2, rng_seed=99, seed=0))
+        runs = []
+        for run in range(2):
+            reqs = synth_requests(8, V, FAMILY_NEW, seed=0)
+            out[f"{algorithm}_run{run}"] = family_serve(
+                eng, reqs, f"internvl2-2b {algorithm} run {run}", card)
+            runs.append([r.output for r in reqs])
+        assert runs[0] == runs[1], (algorithm, "two runs differ")
+        launched = out[f"{algorithm}_run0"]["launches"]
+        assert (launched["fused_sample"] if algorithm == "fused" else
+                min(launched["penalty_scale"], launched["shvs_masses"])) \
+            > 0, launched
+        greedy[algorithm] = synth_requests(8, V, FAMILY_NEW, greedy=True)
+        serve_batch(eng, greedy[algorithm])
+        eng.close()
+    eng = family_engine(cfg, "reference", dev, params)
+    greedy["reference"] = synth_requests(8, V, FAMILY_NEW, greedy=True)
+    serve_batch(eng, greedy["reference"])
+    out["greedy"] = {f"{a}_vs_reference": gap_checked(
+        eng, greedy[a], greedy["reference"], dev, "internvl2-2b")
+        for a in ("shvs", "fused")}
+    eng.close()
+    print(f"internvl2-2b: two runs equal (shvs, fused); greedy vs reference "
+          f"{out['greedy']} [{card}]")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    patches = lambda B: torch.randn((B, PATCHES, cfg.d_model), generator=gen,
+                                    device=dev).to(torch_dtype(cfg.dtype))
+    toks = torch.randint(1, V, (2, 32), generator=gen, device=dev,
+                         dtype=torch.int32)
+    out["patch_decode"] = plane_decode(
+        model, params, {"tokens": toks, "patch_embeds": patches(2)}, dev,
+        card, f"internvl2-2b {PATCHES} patches + 32 tokens", seq=512)
+    assert out["patch_decode"]["len"] == [PATCHES + 32 + 16] * 2
+    lab = torch.randint(0, V, (2, TRAIN_S + 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    out["train_step"] = train_step_once(
+        model, params, {"tokens": lab[:, :-1], "labels": lab[:, 1:],
+                        "patch_embeds": patches(2)}, dev, card,
+        f"internvl2-2b {PATCHES} patches +")
+    del params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def audio_phase(dev, card):
+    """Phase 10 (d): whisper-base over seeded encoder frames: the
+    encoder's ms, prefill + decode drawn through ``DecisionPlane.step``,
+    the prefill/decode consistency, a train step, and the engines'
+    refusal (ROADMAP Fault 7)."""
+    import statistics
+    import torch
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import apply_encoder
+    cfg = full_arch("whisper-base")
+    assert cfg.encoder.num_frames == FRAMES
+    V = cfg.vocab_size
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    frames = torch.randn((2, FRAMES, cfg.d_model), generator=gen,
+                         device=dev).to(torch_dtype(cfg.dtype))
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = apply_encoder(params["encoder"], frames, cfg)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    assert enc.shape == frames.shape and bool(torch.isfinite(enc).all())
+    out = {"encoder_ms": statistics.median(times)}
+    print(f"whisper-base encoder, B=2 x {FRAMES} frames: "
+          f"{out['encoder_ms']:.2f} ms (median of 3) [{card}]")
+    toks = torch.randint(1, V, (2, 8), generator=gen, device=dev,
+                         dtype=torch.int32)
+    out["frames_decode"] = plane_decode(
+        model, params, {"tokens": toks, "frames": frames}, dev, card,
+        f"whisper-base {FRAMES} frames + 8 tokens", seq=64)
+    out["consistency"] = family_consistency(model, params, dev, card,
+                                            extra={"frames": frames})
+    lab = torch.randint(0, V, (2, TRAIN_S + 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    out["train_step"] = train_step_once(
+        model, params, {"tokens": lab[:, :-1], "labels": lab[:, 1:],
+                        "frames": frames}, dev, card,
+        f"whisper-base {FRAMES} frames +")
+    try:
+        family_engine(cfg, "shvs", dev, params)
+    except NotImplementedError as e:
+        assert "Fault 7" in str(e), e
+        out["engine_refused"] = str(e)
+    else:
+        raise AssertionError("whisper-base: the engine accepted it")
+    print(f"whisper-base: the engine refuses it ({out['engine_refused']})")
+    del params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(dev, card):
+    """Phase 10: (a) full-width smollm-360m trained, checkpointed and
+    served, (b) the long sequence, (c) internvl2-2b, (d) whisper-base."""
+    import torch
+    out, secs, t0 = {}, {}, time.perf_counter()
+    out["smollm"], tr = train_smollm(dev, card)
+    secs["a"] = time.perf_counter() - t0
+    out["long"] = long_sequence(tr, dev, card)
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    del tr
+    torch.cuda.empty_cache()
+    out["internvl2"] = vlm_phase(dev, card)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    out["whisper"] = audio_phase(dev, card)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    out["seconds"] = secs
+    print(f"phase 10 parts took (s): "
+          f"{ {k: round(v, 1) for k, v in secs.items()} }")
+    return out
+
+
+def train_only(dev, card):
+    """``--train-only``: phase 10 alone; prints one JSON line."""
+    print(json.dumps({"train_only": {"card": card,
+                                     "runs": train_phase(dev, card)}}))
+    return 0
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2374,6 +2910,10 @@ def main() -> int:
                     help="build the kernels and run phases 3 and 9 (the "
                          "MoE, RWKV-6 and Zamba2 families) only; prints "
                          "one JSON line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build the kernels and run phase 10 (training, "
+                         "the VLM and audio inputs, chunked attention) "
+                         "only; prints one JSON line")
     ap.add_argument("--switch-interval", type=float, default=None,
                     help="sys.setswitchinterval(seconds) before anything "
                          "runs: how often Python threads (the gateway's "
@@ -2436,6 +2976,8 @@ def main() -> int:
         return migration_only(dev, card)
     if args.families_only:
         return families_only(dev, card)
+    if args.train_only:
+        return train_only(dev, card)
 
     t_phase = time.perf_counter()
 
@@ -2463,6 +3005,8 @@ def main() -> int:
     phase_done(8)
     family_runs, family_counts = serve_families(dev, card)
     phase_done(9)
+    train_runs = train_phase(dev, card)
+    phase_done(10)
 
     launch_of = {"penalty_scale": counts["shvs"]["penalty_scale"],
                  "shvs_masses": counts["shvs"]["shvs_masses"],
@@ -2488,6 +3032,7 @@ def main() -> int:
               "step_profile": steps, "host_placement": host_runs,
               "pipeline": pipeline_runs, "migration": migration_runs,
               "families": family_runs, "family_launches": family_counts,
+              "training": train_runs,
               "fused_large_k": large_k,
               "gumbel_sass": sass,
               "gumbel_issue_floor": floor}

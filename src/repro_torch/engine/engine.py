@@ -305,6 +305,18 @@ class _Pending:
     t_dispatch: float = 0.0                     # perf_counter at dispatch
 
 
+def refuse_encdec(cfg: ModelConfig) -> None:
+    """The engines serve no encoder-decoder model: their prefill passes
+    ``{"tokens"}`` only, as the reference's does, so the encoder never
+    sees frames (the reference's engine fails at its first prefill)."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the engines do not serve encoder-decoder models "
+            "(prefill never receives the encoder frames; ROADMAP Fault 7). "
+            "Model.prefill(params, {'tokens', 'frames'}, cache) serves "
+            "them directly")
+
+
 class Engine:
     """Serving engine over one device. ``device`` defaults to "cuda" and
     must match where ``params`` live; CUDA without a card raises.
@@ -321,6 +333,7 @@ class Engine:
                  telemetry: Optional[Telemetry] = None):
         self._api_lock = threading.RLock()
         self._closed = False
+        refuse_encdec(model_cfg)
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.ecfg = engine_cfg

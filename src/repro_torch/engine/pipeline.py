@@ -67,7 +67,8 @@ from repro_torch.device import HostCopy, resolve_device, to_device
 from repro_torch.engine.decision_client import DecisionPlaneClient
 from repro_torch.engine.engine import (EngineConfig, SlotParams, _insert_rows,
                                        _move_state, generate_stream,
-                                       locked_api, prefill_new_rows)
+                                       locked_api, prefill_new_rows,
+                                       refuse_encdec)
 from repro_torch.engine.paged_cache import (BlockAllocator, PagedCacheConfig,
                                             init_paged_cache)
 from repro_torch.engine.request import Request, RequestState
@@ -228,6 +229,7 @@ class PipelineEngine:
         # closed flag that close() reads on a half-constructed engine
         self._api_lock = threading.RLock()
         self._closed = False
+        refuse_encdec(model_cfg)
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.ecfg = engine_cfg

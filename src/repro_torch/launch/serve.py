@@ -4,7 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --reduced --device cpu --requests 4 --max-new 6
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
-        --reduced --device cpu      # also granite-moe-1b-a400m, zamba2-1.2b
+        --reduced --device cpu      # also granite-moe-1b-a400m, zamba2-1.2b,
+                                    # internvl2-2b (text only)
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --algorithm gumbel --cache paged --prompt-chunk 8 --long-prompts
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
@@ -26,6 +27,9 @@ the model's dtype, made on the device, or ``--weights PATH.npz`` in the
 layout of ``models.bridge.save_npz`` (the reference's ``Model.init`` tree
 goes there with ``save_npz(path, jax.tree_util.tree_map(np.asarray,
 params))``). ``--device`` defaults to ``cuda`` and fails without a card.
+As in the reference, the VLM (internvl2-2b) is served text only, and
+chunked prefill, the paged cache and the pipeline take the dense and MoE
+families only; whisper-base is refused (ROADMAP Fault 7).
 
 Prefill/decode disaggregation and the gateway (DESIGN.md §16, §18):
 

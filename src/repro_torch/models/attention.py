@@ -3,7 +3,11 @@
 Written as the einsum/softmax it is in the reference (scores and the
 weighted sum accumulate in float32), not as a fused library attention.
 
-* ``attend_full``   — direct masked softmax (train/prefill).
+* ``attend_full``   — direct masked softmax (train/prefill below
+  ``chunk_threshold`` tokens, and the decoder's cross attention).
+* ``attend_chunked`` — blocked attention with a running max and sum
+  (train/prefill from ``chunk_threshold`` = 4096 tokens on), so the
+  scores of one block pair are live at a time, not all S² of them.
 * ``attend_decode`` — one query token against a KV cache with a length
   mask; with ``ring=True`` the cache is a sliding-window ring buffer.
 * ``attend_chunk_cached`` — C prompt tokens per row at per-row offsets
@@ -45,10 +49,12 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
     return p
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions, rope_tables=None):
-    """Project to q/k/v, apply qk-norm + RoPE. Returns (q, k, v) with shapes
-    (B, S, nh, hd), (B, S, nkv, hd), (B, S, nkv, hd). ``rope_tables``: the
-    forward's shared cos/sin, if already made."""
+def _project_qkv(params, x, cfg: ModelConfig, positions, rope_tables=None,
+                 *, rope: bool = True):
+    """Project to q/k/v, apply qk-norm + RoPE (unless ``rope=False``, as
+    the encoder asks). Returns (q, k, v) with shapes (B, S, nh, hd), (B,
+    S, nkv, hd), (B, S, nkv, hd). ``rope_tables``: the forward's shared
+    cos/sin, if already made."""
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     B, S = x.shape[0], x.shape[1]
@@ -58,7 +64,7 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, rope_tables=None):
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.rmsnorm_eps)
         k = rms_norm(k, params["k_norm"], cfg.rmsnorm_eps)
-    if cfg.rope_theta > 0:
+    if rope and cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta, rope_tables)
         k = apply_rope(k, positions, cfg.rope_theta, rope_tables)
     return q, k, v
@@ -80,12 +86,13 @@ def _attend_scores_softmax(q, k, v, mask, scale):
     return out.to(v.dtype)
 
 
-def attend_full(q, k, v, *, causal: bool, window: int):
-    """Direct attention. q: (B,Sq,nkv,g,hd); k,v: (B,Skv,nkv,hd)."""
+def attend_full(q, k, v, *, causal: bool, window: int, q_offset: int = 0):
+    """Direct attention. q: (B,Sq,nkv,g,hd); k,v: (B,Skv,nkv,hd); query i
+    sits at position ``q_offset + i``."""
     B, Sq = q.shape[0], q.shape[1]
     Skv = k.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    qi = torch.arange(Sq, device=q.device)[:, None]
+    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
     kj = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:
@@ -94,6 +101,64 @@ def attend_full(q, k, v, *, causal: bool, window: int):
         mask &= kj > qi - window
     mask = mask[None].expand(B, Sq, Skv)
     return _attend_scores_softmax(q, k, v, mask[:, None], scale)
+
+
+def attend_chunked(q, k, v, *, causal: bool, window: int,
+                   chunk_q: int = 512, chunk_k: int = 512):
+    """Blocked attention with a running max ``m``, sum ``l`` and
+    accumulator, all float32, over blocks of ``chunk_q`` queries and
+    ``chunk_k`` keys; shapes as in :func:`attend_full`.
+
+    Lengths that are no multiple of the block are padded at the end: the
+    causal mask hides pad keys from real queries and pad query rows are
+    sliced off. A block pair that the mask hides entirely is skipped: the
+    reference computes it, but there every score is -1e30, so it adds
+    exactly 0 after a visible block and is scaled by exactly 0 before
+    one; skipping it changes no bit."""
+    Sq_real, Skv_real = q.shape[1], k.shape[1]
+    pq, pk = (-Sq_real) % chunk_q, (-Skv_real) % chunk_k
+    if pq or pk:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, pq))
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
+    B, Sq, nkv, g, hd = q.shape
+    nq, nk = Sq // chunk_q, k.shape[1] // chunk_k
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    ar_q = torch.arange(chunk_q, device=dev)[:, None]
+    ar_k = torch.arange(chunk_k, device=dev)[None, :]
+    outs = []
+    for i in range(nq):
+        q_blk = q[:, i * chunk_q:(i + 1) * chunk_q].float()
+        q_lo, q_hi = i * chunk_q, (i + 1) * chunk_q - 1
+        m = torch.full((B, nkv, g, chunk_q), NEG_INF, device=dev)
+        l = torch.zeros((B, nkv, g, chunk_q), device=dev)
+        acc = torch.zeros((B, nkv, g, chunk_q, hd), device=dev)
+        for j in range(nk):
+            k_lo, k_hi = j * chunk_k, (j + 1) * chunk_k - 1
+            if (causal and k_lo > q_hi) or (window and k_hi <= q_lo - window):
+                continue
+            k_blk = k[:, k_lo:k_hi + 1].float()
+            v_blk = v[:, k_lo:k_hi + 1].float()
+            s = torch.einsum("bqngh,bknh->bngqk", q_blk, k_blk) * scale
+            qpos, kpos = q_lo + ar_q, k_lo + ar_k
+            msk = torch.ones((chunk_q, chunk_k), dtype=torch.bool,
+                             device=dev)
+            if causal:
+                msk &= kpos <= qpos
+            if window:
+                msk &= kpos > qpos - window
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bngqk,bknh->bngqh", p, v_blk)
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))    # (B, chunk_q, nkv, g, hd)
+    return torch.cat(outs, dim=1)[:, :Sq_real].to(v.dtype)
 
 
 def attend_decode(q, cache_k, cache_v, kv_len, *, window: int = 0,
@@ -216,10 +281,11 @@ def attend_paged(q, k_pool_layer, v_pool_layer, block_table, kv_len,
 def attention_block(params, x, cfg: ModelConfig, positions, *,
                     cache_k=None, cache_v=None, kv_len=None,
                     mode: str = "train", window: Optional[int] = None,
-                    qkv=None, rope_tables=None):
+                    qkv=None, rope_tables=None, chunk_threshold: int = 4096):
     """Self-attention for train/prefill ("train"), decode and "chunk"
     (chunked prefill; ``kv_len`` carries the rows' offsets before the
-    chunk).
+    chunk). Train/prefill attends with :func:`attend_chunked` from
+    ``chunk_threshold`` tokens on, with :func:`attend_full` below.
 
     In decode and chunk mode the cache must already hold this step's K/V;
     ``qkv``
@@ -240,9 +306,33 @@ def attention_block(params, x, cfg: ModelConfig, positions, *,
     elif mode == "chunk":
         out = attend_chunk_cached(qg, cache_k, cache_v, kv_len)
     elif mode == "train":
-        out = attend_full(qg, k, v, causal=True, window=window)
+        attend = attend_chunked if Sq >= chunk_threshold else attend_full
+        out = attend(qg, k, v, causal=True, window=window)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
     out = out.reshape(B, Sq, cfg.num_heads * cfg.resolved_head_dim)
     out = torch.matmul(out, params["w_o"]).to(x.dtype)
     return out, k, v
+
+
+def cross_attention_block(params, x, enc_kv, cfg: ModelConfig):
+    """Cross-attention of the decoder (whisper) over the encoder's output:
+    ``enc_kv`` = (k, v) from :func:`project_enc_kv`, each (B, S_enc, nkv,
+    hd); every query sees every frame."""
+    B, Sq, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = matmul(x, params["w_q"]).reshape(B, Sq, cfg.num_heads, hd)
+    k, v = enc_kv
+    out = attend_full(_expand_gqa(q, cfg.num_kv_heads), k, v, causal=False,
+                      window=0)
+    out = out.reshape(B, Sq, cfg.num_heads * hd)
+    return matmul(out, params["w_o"])
+
+
+def project_enc_kv(params, enc_out, cfg: ModelConfig):
+    """The encoder output (B, S, d) projected to the decoder's cross
+    K/V, each (B, S, nkv, hd)."""
+    B, S, _ = enc_out.shape
+    shape = (B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (matmul(enc_out, params["w_k"]).reshape(shape),
+            matmul(enc_out, params["w_v"]).reshape(shape))

@@ -76,6 +76,14 @@ def rms_norm(x, weight, eps: float = 1e-5):
     return (out * weight.float()).to(x.dtype)
 
 
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

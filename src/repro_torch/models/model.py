@@ -1,9 +1,11 @@
-"""Model facade over the token-only families (the reference's ``Model``).
+"""Model facade: a uniform interface over all six architecture families
+(the reference's ``Model``).
 
     model = Model(cfg)
     params = model.init(seed=0, device="cuda")              # port's own init
+    logits, aux = model.train_logits(params, batch)  # (B, S, V) f32, aux
     cache = model.init_cache(B, S, device="cuda")
-    logits, cache = model.prefill(params, {"tokens": t}, cache,
+    logits, cache = model.prefill(params, batch, cache,
                                   true_lens=lens)        # (B, V) f32
     logits, cache = model.prefill_chunk(params, toks, cache, counts,
                                         mask)                # (B, V) f32
@@ -11,12 +13,16 @@
     out, cache = model.decode_stage(stage_params, x_or_tokens, stage_cache,
                                     first=..., last=...)  # one stage
 
-``params`` is the reference's tree (``{"emb": {...}, "stack": {...}}``,
-weights ``(in, out)``, per-layer leaves stacked on a leading L axis); the
-reference's own init comes across through :mod:`repro_torch.models.bridge`.
-The ``dense``, ``moe``, ``ssm`` (RWKV-6) and ``hybrid`` (Zamba2) families
-are ported; the VLM and audio inputs (patch embeddings, the encoder and
-cross attention) are not.
+``batch`` is a dict: always ``tokens (B, S)``; the VLM adds
+``patch_embeds (B, P, d)``, placed before the text; the audio family
+(whisper) adds ``frames (B, F, d)``, which the encoder reads (both are the
+stubbed modality frontends' precomputed embeddings, cast to the
+parameters' dtype here; the reference computes the encoder in the frames'
+dtype). ``params`` is the reference's tree (``{"emb": {...}, "stack":
+{...}}``, plus ``"encoder"`` and the learned decoder positions
+``"dec_pos"`` for whisper; weights ``(in, out)``, per-layer leaves stacked
+on a leading L axis); the reference's own init comes across through
+:mod:`repro_torch.models.bridge`.
 """
 from __future__ import annotations
 
@@ -24,26 +30,27 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import embed, init_embeddings, lm_head
-from repro_torch.models.transformer import (apply_dense_stack,
+from repro_torch.models.layers import (dense_init, embed, init_embeddings,
+                                      lm_head, torch_dtype)
+from repro_torch.models.transformer import (apply_dense_stack, apply_encoder,
                                             apply_rwkv_stack,
                                             apply_zamba_stack, init_cache,
-                                            init_dense_stack,
+                                            init_dense_stack, init_encoder,
                                             init_rwkv_stack, init_zamba_stack)
 
+_DENSE_FAMILIES = ("dense", "moe", "vlm", "audio")
 # family -> (stack init, stack forward)
-_STACKS = {"dense": (init_dense_stack, apply_dense_stack),
-           "moe": (init_dense_stack, apply_dense_stack),
+_STACKS = {**{f: (init_dense_stack, apply_dense_stack)
+              for f in _DENSE_FAMILIES},
            "ssm": (init_rwkv_stack, apply_rwkv_stack),
            "hybrid": (init_zamba_stack, apply_zamba_stack)}
+DEC_POSITIONS = 32768        # whisper's learned decoder positions (sliced)
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in _STACKS or cfg.is_encdec:
-            raise NotImplementedError(
-                f"the {cfg.family!r} family is not ported yet (ROADMAP "
-                "'Modules to port' item 4)")
+        if cfg.family not in _STACKS:
+            raise ValueError(cfg.family)
         self.cfg = cfg
         self._init_stack, self._apply_stack = _STACKS[cfg.family]
 
@@ -51,47 +58,93 @@ class Model:
     def init(self, seed: int = 0, device="cuda") -> dict:
         """Seeded random weights in the reference's layout, made on
         ``device`` (not the reference's values: use the bridge for those)."""
+        cfg = self.cfg
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(seed)
-        emb = init_embeddings(g, self.cfg, dev)
-        return {"emb": emb, "stack": self._init_stack(g, self.cfg, dev)}
+        params = {"emb": init_embeddings(g, cfg, dev),
+                  "stack": self._init_stack(g, cfg, dev)}
+        if cfg.is_encdec:
+            params["encoder"] = init_encoder(g, cfg, dev)
+            params["dec_pos"] = dense_init(
+                g, (DEC_POSITIONS, cfg.d_model), torch_dtype(cfg.dtype), dev,
+                scale=0.02)
+        return params
 
     def init_cache(self, batch: int, seq_len: int, window=None, dtype=None,
                    device="cuda"):
         return init_cache(self.cfg, batch, seq_len, window, dtype,
                           resolve_device(device))
 
-    # -- entry points ---------------------------------------------------------
-    def _embed_inputs(self, params, tokens, lens=None):
-        """Returns (x (B,S,d), positions (B,S)); ``lens`` are the rows'
-        current lengths (decode), None for fresh prefill."""
+    # -- embedding / input assembly -------------------------------------------
+    def _embed_inputs(self, params, batch, lens=None):
+        """Returns (x (B,S,d), positions (B,S), enc_out or None); ``lens``
+        are the rows' current lengths (decode), None for fresh
+        prefill/train (positions start at 0)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
         x = embed(params["emb"], tokens)
-        B, S = tokens.shape
+        enc_out = None
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+        if cfg.is_encdec and "frames" in batch:
+            enc_out = apply_encoder(params["encoder"],
+                                    batch["frames"].to(x.dtype), cfg)
+        B, S = x.shape[0], x.shape[1]
         positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None, :]
+                                 device=x.device)[None, :]
         positions = positions.expand(B, S) if lens is None \
             else lens[:, None] + positions
-        return x, positions
+        if cfg.is_encdec:
+            # learned decoder positions (RoPE off: rope_theta = 0)
+            dec_pos = params["dec_pos"]
+            idx = torch.clamp(positions, max=dec_pos.shape[0] - 1)
+            x = x + embed({"tok": dec_pos}, idx).to(x.dtype)
+        return x, positions, enc_out
+
+    def _stack(self, params, x, positions, cache, mode, window=None,
+               remat=False, enc_out=None):
+        kw = {"enc_out": enc_out} if self.cfg.family in _DENSE_FAMILIES \
+            else {}
+        return self._apply_stack(params["stack"], x, positions, self.cfg,
+                                 cache, mode, window=window, remat=remat,
+                                 **kw)
+
+    @staticmethod
+    def _patches(batch) -> int:
+        pe = batch.get("patch_embeds")
+        return 0 if pe is None else pe.shape[1]
+
+    # -- entry points ---------------------------------------------------------
+    def train_logits(self, params, batch, remat: bool = True):
+        """Full-sequence logits for training: (logits (B, S, V) f32, aux),
+        the patch positions of a VLM batch dropped (the loss is on the
+        text). ``remat`` checkpoints each layer."""
+        x, positions, enc_out = self._embed_inputs(params, batch)
+        y, _, aux = self._stack(params, x, positions, None, "train",
+                                remat=remat, enc_out=enc_out)
+        if self.cfg.family == "vlm":
+            y = y[:, self._patches(batch):]
+        return lm_head(params["emb"], y), aux
 
     def prefill(self, params, batch, cache, window=None, true_lens=None):
         """Process prompts (fresh rows). Returns (last-pos logits (B,V),
         cache). ``true_lens``: per-row prompt lengths of a right-padded
-        batch; logits are taken at position true_len-1 and cache["len"] is
-        set to it."""
-        x, positions = self._embed_inputs(params, batch["tokens"])
-        y, cache = self._apply_stack(params["stack"], x, positions,
-                                     self.cfg, cache, "prefill",
-                                     window=window)
+        batch; logits are taken at position true_len-1 (after a VLM
+        batch's patches) and cache["len"] is set to it. Whisper needs
+        ``batch["frames"]``: prefill stores their cross K/V for decode."""
+        x, positions, enc_out = self._embed_inputs(params, batch)
+        y, cache, _ = self._stack(params, x, positions, cache, "prefill",
+                                  window=window, enc_out=enc_out)
         if true_lens is not None:
             B = y.shape[0]
-            idx = torch.clamp(true_lens.long() - 1, 0, y.shape[1] - 1)
+            off = self._patches(batch) if self.cfg.family == "vlm" else 0
+            idx = torch.clamp(off + true_lens.long() - 1, 0, y.shape[1] - 1)
             y_last = y[torch.arange(B, device=y.device), idx]
             cache = dict(cache)
-            cache["len"] = torch.zeros_like(cache["len"]) + true_lens
+            cache["len"] = torch.zeros_like(cache["len"]) + off + true_lens
         else:
             y_last = y[:, -1]
         return lm_head(params["emb"], y_last), cache
-
     def prefill_chunk(self, params, tokens, cache, counts, mask):
         """Continue prefilling in place: write ``counts[b]`` prompt tokens
         (right-padded to the chunk width C) for rows where ``mask[b]``,
@@ -106,10 +159,11 @@ class Model:
         assert cfg.family in ("dense", "moe") and not cfg.sliding_window, \
             "chunked prefill: full-causal dense only"
         lens0 = cache["len"]
-        x, positions = self._embed_inputs(params, tokens, lens=lens0)
-        y, cache = apply_dense_stack(params["stack"], x, positions, cfg,
-                                     cache, "chunk", chunk_mask=mask,
-                                     chunk_counts=counts)
+        x, positions, _ = self._embed_inputs(params, {"tokens": tokens},
+                                             lens=lens0)
+        y, cache, _ = apply_dense_stack(params["stack"], x, positions, cfg,
+                                        cache, "chunk", chunk_mask=mask,
+                                        chunk_counts=counts)
         B, C = tokens.shape
         idx = torch.clamp(counts.long() - 1, 0, C - 1)
         y_last = y[torch.arange(B, device=y.device), idx]
@@ -122,10 +176,10 @@ class Model:
         (logits (B, V), cache)."""
         if tokens.dim() == 1:
             tokens = tokens[:, None]
-        x, positions = self._embed_inputs(params, tokens, lens=cache["len"])
-        y, cache = self._apply_stack(params["stack"], x, positions,
-                                     self.cfg, cache, "decode",
-                                     window=window)
+        x, positions, _ = self._embed_inputs(params, {"tokens": tokens},
+                                             lens=cache["len"])
+        y, cache, _ = self._stack(params, x, positions, cache, "decode",
+                                  window=window)
         return lm_head(params["emb"], y[:, -1]), cache
 
     def decode_stage(self, stage_params, x_or_tokens, cache, *, first: bool,
@@ -147,15 +201,15 @@ class Model:
             tokens = x_or_tokens
             if tokens.dim() == 1:
                 tokens = tokens[:, None]
-            x, positions = self._embed_inputs(stage_params, tokens,
-                                              lens=cache["len"])
+            x, positions, _ = self._embed_inputs(
+                stage_params, {"tokens": tokens}, lens=cache["len"])
         else:
             x = x_or_tokens
             positions = cache["len"][:, None] + torch.arange(
                 x.shape[1], dtype=torch.int32, device=x.device)[None, :]
-        y, cache = apply_dense_stack(stage_params["stack"], x, positions,
-                                     self.cfg, cache, "decode",
-                                     window=window, final_norm=last)
+        y, cache, _ = apply_dense_stack(stage_params["stack"], x, positions,
+                                        self.cfg, cache, "decode",
+                                        window=window, final_norm=last)
         if last:
             return lm_head(stage_params["emb"], y[:, -1]), cache
         return y, cache

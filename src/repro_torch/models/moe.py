@@ -11,8 +11,10 @@ weight 0), the standard Switch/GShard behaviour.
 Shapes stay fixed and nothing reads back to the host: the buckets are an
 ``(E, C + 1, d)`` buffer whose last row takes every dropped pair and is
 cut off before the experts run, so no index is out of bounds and no
-step synchronises the stream. The expert-parallel paths of the reference
-(``shard_map``) are not ported (ROADMAP 'Modules to port' item 5).
+step synchronises the stream. In training the load-balance loss
+(``_aux_loss``) comes with the output. The expert-parallel paths of the
+reference (``shard_map``) are not ported (ROADMAP 'Modules to port' item
+5).
 """
 from __future__ import annotations
 
@@ -57,8 +59,10 @@ def _route(router_w, x_flat, num_experts: int, top_k: int):
 
 
 def _aux_loss(probs, ids, num_experts: int):
-    """Switch-style load-balance loss: E * sum_e f_e * P_e."""
-    assign = F.one_hot(ids[:, 0], num_experts).float()
+    """Switch-style load-balance loss: E * sum_e f_e * P_e. The one-hot
+    is a comparison, so no class check reads the ids back."""
+    experts = torch.arange(num_experts, device=ids.device)
+    assign = (ids[:, :1] == experts[None]).float()
     f = assign.mean(0)                       # fraction routed (top-1 proxy)
     pbar = probs.mean(0)
     return num_experts * torch.sum(f * pbar)
@@ -104,8 +108,11 @@ def _dispatch_compute_combine(x_flat, ids, gates, w_gate, w_up, w_down,
     gates_flat = gates.reshape(T * k)
     safe_ids, slot, keep = _slots(ids.reshape(T * k), num_experts, capacity)
     x_rep = x_flat[:, None].expand(T, k, d).reshape(T * k, d)
-    buf = x_flat.new_zeros((num_experts, capacity + 1, d))
-    buf[safe_ids, slot] = x_rep
+    # out of place, so autograd sees the scatter: the overflow row C takes
+    # every dropped pair and is cut off, so their gradient is 0, as with
+    # the reference's mode="drop"
+    buf = x_flat.new_zeros((num_experts, capacity + 1, d)).index_put(
+        (safe_ids, slot), x_rep)
     out_buf = _expert_compute(buf[:, :capacity], w_gate, w_up, w_down, act)
     # gather back (the zero row C for dropped pairs) + weighted combine
     y = F.pad(out_buf, (0, 0, 0, 1))[safe_ids, slot]
@@ -118,18 +125,22 @@ def _capacity(tokens: int, k: int, num_experts: int, factor: float) -> int:
     return max(8, min(tokens * k, c))
 
 
-def apply_moe(params, x, cfg: ModelConfig):
-    """MoE FFN. x: (B, S, d) -> (B, S, d). The reference also returns the
-    load-balance loss, weighed by 0 outside training; the port serves
-    only, so ``_aux_loss`` waits for the training port (ROADMAP item 6)."""
+def apply_moe(params, x, cfg: ModelConfig, *, train: bool = False):
+    """MoE FFN. x: (B, S, d). Returns (out (B, S, d), aux): the
+    load-balance loss weighed by ``aux_loss_weight`` in training; outside
+    training the reference weighs it by 0, and here it is the number 0,
+    not computed."""
     m = cfg.moe
     B, S, d = x.shape
     x_flat = x.reshape(B * S, d)
-    ids, gates, _ = _route(params["router"], x_flat, m.num_experts, m.top_k)
+    ids, gates, probs = _route(params["router"], x_flat, m.num_experts,
+                               m.top_k)
     cap = _capacity(B * S, m.top_k, m.num_experts, m.capacity_factor)
     out = _dispatch_compute_combine(
         x_flat, ids, gates, params["w_gate"], params["w_up"],
         params["w_down"], m.num_experts, cap, cfg.act).reshape(B, S, d)
     if "shared" in params:
         out = out + apply_mlp(params["shared"], x, cfg.act)
-    return out
+    if not train:
+        return out, 0.0
+    return out, _aux_loss(probs, ids, m.num_experts) * m.aux_loss_weight

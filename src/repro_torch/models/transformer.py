@@ -1,16 +1,24 @@
-"""Decoder stacks of the token-only families over their caches.
+"""Decoder stacks of every family, and the whisper encoder.
 
 ``apply_<family>_stack(params, x, positions, cfg, cache, mode) -> (y,
-cache)`` with ``mode`` "prefill" or "decode", and "chunk" (chunked
-prefill) for the dense/MoE stack. Layer parameters are stacked along a
-leading L axis, as in the reference; a Python loop over the layers takes
-the place of ``lax.scan``.
+cache, aux)`` with ``mode`` "train" (no cache), "prefill" or "decode",
+and "chunk" (chunked prefill) for the dense/MoE stack; ``aux`` is the
+MoE load-balance loss summed over the layers (weighed by
+``aux_loss_weight`` in training, 0 otherwise). Layer parameters are
+stacked along a leading L axis, as in the reference; a Python loop over
+the layers takes the place of ``lax.scan``. With ``remat=True`` a train
+forward checkpoints each layer (the reference's ``jax.checkpoint`` of the
+scan body): the backward recomputes the layer instead of keeping its
+activations.
 
-* ``dense``/``moe``: :func:`apply_dense_stack` over a contiguous or a
-  paged KV cache, an MLP or a MoE FFN a layer. A pipeline stage runs it
-  on a slice of the layers (``stage_bounds``, ``slice_stage_params``,
-  ``slice_stage_cache``): the slices are views, so a stage writes its K/V
-  into the full cache's tensors.
+* ``dense``/``moe``/``vlm``/``audio``: :func:`apply_dense_stack` over a
+  contiguous or a paged KV cache, an MLP or a MoE FFN a layer; the audio
+  family (whisper) uses LayerNorm with a zero bias and a cross attention
+  over the encoder's output (:func:`apply_encoder`), whose K/V prefill
+  stores in the cache's ``cross_k``/``cross_v`` for decode. A pipeline
+  stage runs it on a slice of the layers (``stage_bounds``,
+  ``slice_stage_params``, ``slice_stage_cache``): the slices are views,
+  so a stage writes its K/V into the full cache's tensors.
 * ``ssm`` (RWKV-6): :func:`apply_rwkv_stack`, attention-free.
 * ``hybrid`` (Zamba2): :func:`apply_zamba_stack`, Mamba2 layers with one
   weight-shared attention block before every group of ``attn_every``.
@@ -32,13 +40,17 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.attention import (_project_qkv, attention_block,
+from repro_torch.models.attention import (_expand_gqa, _project_qkv,
+                                         attend_full, attention_block,
+                                         cross_attention_block,
                                          flat_block_indices,
                                          gather_block_view, init_attention,
-                                         scatter_block_kv)
-from repro_torch.models.layers import (apply_mlp, init_mlp, rms_norm,
+                                         project_enc_kv, scatter_block_kv)
+from repro_torch.models.layers import (apply_mlp, dense_init, init_mlp,
+                                      layer_norm, matmul, rms_norm,
                                       rope_tables, torch_dtype)
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.ssm import (init_mamba, init_rwkv, mamba_dims,
@@ -64,7 +76,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     slots (ring buffer). RWKV keeps its f32 wkv state and the two token
     shifts; Zamba2 its f32 SSM state, the conv carry and the K/V of its
     G = ceil(L / attn_every) shared-attention sites, over a window of
-    4096 unless the arch or the caller sets one."""
+    4096 unless the arch or the caller sets one. An encoder-decoder
+    (whisper) adds the cross K/V of its ``num_frames`` encoder frames."""
     dtype = dtype or torch_dtype(cfg.dtype)
     hd, nkv, d, L = (cfg.resolved_head_dim, cfg.num_kv_heads, cfg.d_model,
                      cfg.num_layers)
@@ -72,10 +85,14 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                                                  device=device)
     cache = {"len": zeros(batch, dt=torch.int32),
              "pos": zeros(dt=torch.int32)}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         Sc = cache_len_for(cfg, seq_len, window)
         cache["k"] = zeros(L, batch, Sc, nkv, hd)
         cache["v"] = zeros(L, batch, Sc, nkv, hd)
+        if cfg.is_encdec:
+            Se = cfg.encoder.num_frames
+            cache["cross_k"] = zeros(L, batch, Se, nkv, hd)
+            cache["cross_v"] = zeros(L, batch, Se, nkv, hd)
     elif cfg.family == "ssm":        # rwkv6
         hs = cfg.ssm.rwkv_head_size
         cache["ssm"] = zeros(L, batch, d // hs, hs, hs, dt=torch.float32)
@@ -91,9 +108,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
         cache["k"] = zeros(G, batch, Sc, nkv, hd)
         cache["v"] = zeros(G, batch, Sc, nkv, hd)
     else:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's cache is not ported yet (ROADMAP "
-            "'Modules to port' item 4)")
+        raise ValueError(cfg.family)
     return cache
 
 
@@ -190,13 +205,14 @@ def slice_stage_cache(cache: dict, lo: int, hi: int):
 
 
 # ---------------------------------------------------------------------------
-# Dense decoder stack
+# Dense decoder stack (also the VLM decoder and whisper's, with cross_kv)
 # ---------------------------------------------------------------------------
 
 
 def init_dense_stack(gen: torch.Generator, cfg: ModelConfig, device):
     """Seeded weights of the dense/MoE stack in the reference's layout:
-    every per-layer leaf stacked on a leading L axis, weights (in, out)."""
+    every per-layer leaf stacked on a leading L axis, weights (in, out);
+    an encoder-decoder adds each layer's cross attention and its norm."""
     dt = torch_dtype(cfg.dtype)
     L, d = cfg.num_layers, cfg.d_model
     ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)
@@ -206,15 +222,23 @@ def init_dense_stack(gen: torch.Generator, cfg: ModelConfig, device):
         p["moe"] = init_moe(gen, cfg, device, stacked=L)
     else:
         p["mlp"] = init_mlp(gen, cfg, device, stacked=L)
+    if cfg.is_encdec:
+        p["ln_cross"] = ones(L, d)
+        p["cross"] = init_attention(gen, cfg, device, stacked=L)
     p["final_ln"] = ones(d)
     return p
 
 
-def _layer(tree, i: int):
-    """Layer ``i``'s slice of a stacked parameter tree."""
+def _unstack(tree) -> list:
+    """The per-layer slices of a stacked parameter tree, as views
+    (``torch.unbind``): under autograd the layers' gradients are stacked
+    in one op, where indexing layer by layer would pad each layer's
+    gradient to the whole stack with zeros and add them."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return torch.unbind(tree, 0)
 
 
 def _bump_len(cache: dict, S_new: int) -> dict:
@@ -225,26 +249,52 @@ def _bump_len(cache: dict, S_new: int) -> dict:
     return cache
 
 
+def _run_layer(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` under a non-reentrant checkpoint, so
+    the backward recomputes the layer from its input."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _train_aux(mode: str, x):
+    """The aux loss's start: a float32 zero in train mode, the number 0
+    otherwise (no tensor, so serving launches nothing for it)."""
+    return torch.zeros((), device=x.device) if mode == "train" else 0.0
+
+
 def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
                       mode: str, window: Optional[int] = None,
-                      chunk_mask=None, chunk_counts=None,
-                      final_norm: bool = True):
-    """x: (B, S, d). Returns (y, cache), y final-normed unless
+                      remat: bool = False, enc_out=None, chunk_mask=None,
+                      chunk_counts=None, final_norm: bool = True):
+    """x: (B, S, d). Returns (y, cache, aux), y final-normed unless
     ``final_norm=False``: a pipeline stage that is not the last hands its
     residual stream to the next stage raw (its ``params`` then need not
     carry ``final_ln``). The layers are those ``params`` carry, so a
-    stage's slice runs its own layers.
+    stage's slice runs its own layers. ``cache`` is None in train mode.
+
+    An encoder-decoder (whisper) takes the encoder's output ``enc_out``
+    in train and prefill mode: each layer projects its cross K/V from it,
+    and prefill stores them in the cache for decode to read back.
 
     ``chunk_mask`` (B,) selects the rows of a "chunk" call whose K/V are
     written; ``chunk_counts`` (B,) gives each row's valid tokens in the
     slab (the paged pool scatter needs them; the contiguous slab write
     does not)."""
     eps = cfg.rmsnorm_eps
+    if cfg.family == "audio":        # whisper: LayerNorm, bias-free here
+        norm = lambda h, w: layer_norm(h, w, torch.zeros_like(w), eps)
+    else:
+        norm = lambda h, w: rms_norm(h, w, eps)
     win = cfg.sliding_window if window is None else window
-    lens0 = cache["len"]
-    # valid entries after a decode write; a chunk attends from its offsets
-    kv_len = lens0 + 1 if mode == "decode" else lens0
-    paged = "k_pool" in cache
+    train = mode == "train"
+    assert train == (cache is None), "a cache in all modes but train"
+    compute_cross = cfg.is_encdec and mode in ("train", "prefill")
+    if compute_cross and enc_out is None:
+        raise ValueError(f"{cfg.name}: {mode} needs the encoder's output "
+                         "(batch['frames'])")
+    lens0 = None if train else cache["len"]
+    paged = not train and "k_pool" in cache
     if paged:
         assert mode in ("decode", "chunk"), \
             "a paged cache serves decode and chunk mode only (prefill rows " \
@@ -267,10 +317,13 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
     layers = {k: v for k, v in params.items() if k != "final_ln"}
     rt = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) \
         if cfg.rope_theta > 0 else None
-    for i in range(params["ln1"].shape[0]):
-        lp = _layer(layers, i)
-        h = rms_norm(x, lp["ln1"], eps)
+
+    def layer(x, lp, i):
+        h = norm(x, lp["ln1"])
         if mode in ("decode", "chunk"):
+            # valid entries after a decode write; a chunk attends from its
+            # offsets
+            kv_len = lens0 + 1 if mode == "decode" else lens0
             if paged:
                 # this layer's contiguous view of the pool: a per-step
                 # temporary the cached attention runs on unchanged
@@ -288,24 +341,43 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
                 # persist only the new entries
                 scatter_block_kv(cache["k_pool"][i], qkv[1], pool_flat)
                 scatter_block_kv(cache["v_pool"][i], qkv[2], pool_flat)
-        elif mode == "prefill":
+        elif mode in ("train", "prefill"):
             attn_out, k, v = attention_block(lp["attn"], h, cfg, positions,
                                              mode="train", window=win,
                                              rope_tables=rt)
-            _write_kv(cache["k"][i], cache["v"][i], k, v, lens0, "prefill")
+            if mode == "prefill":
+                _write_kv(cache["k"][i], cache["v"][i], k, v, lens0,
+                          "prefill")
         else:
             raise ValueError(f"unknown stack mode {mode!r}")
         x = x + attn_out
-        h2 = rms_norm(x, lp["ln2"], eps)
+        if cfg.is_encdec:
+            if compute_cross:
+                ckv = project_enc_kv(lp["cross"], enc_out, cfg)
+                if not train:
+                    cache["cross_k"][i].copy_(ckv[0])
+                    cache["cross_v"][i].copy_(ckv[1])
+            else:
+                ckv = (cache["cross_k"][i], cache["cross_v"][i])
+            x = x + cross_attention_block(
+                lp["cross"], norm(x, lp["ln_cross"]), ckv, cfg)
+        h2 = norm(x, lp["ln2"])
         if cfg.moe is not None:
-            ff = apply_moe(lp["moe"], h2, cfg)
+            ff, aux_l = apply_moe(lp["moe"], h2, cfg, train=train)
         else:
-            ff = apply_mlp(lp["mlp"], h2, cfg.act)
-        x = x + ff
-    cache = _bump_len(cache, positions.shape[-1])
+            ff, aux_l = apply_mlp(lp["mlp"], h2, cfg.act), 0.0
+        return x + ff, aux_l
+
+    aux = _train_aux(mode, x)
+    for i, lp in enumerate(_unstack(layers)):
+        x, aux_l = _run_layer(layer, remat and train, x, lp, i)
+        if cfg.moe is not None:
+            aux = aux + aux_l
+    if not train:
+        cache = _bump_len(cache, positions.shape[-1])
     if final_norm:
-        x = rms_norm(x, params["final_ln"], eps)
-    return x, cache
+        x = norm(x, params["final_ln"])
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -324,29 +396,44 @@ def init_rwkv_stack(gen: torch.Generator, cfg: ModelConfig, device):
 
 
 def apply_rwkv_stack(params, x, positions, cfg: ModelConfig, cache,
-                     mode: str, window: Optional[int] = None):
-    """x: (B, S, d). Prefill and decode alike run the time-mix recurrence
-    over the S tokens from the cached state (a right-padded prompt's pad
-    tokens are scanned into it, as in the reference). Returns (y, cache),
-    the states written in place."""
-    assert mode in ("prefill", "decode"), \
-        f"the RWKV stack runs prefill and decode, not {mode!r}"
+                     mode: str, window: Optional[int] = None,
+                     remat: bool = False):
+    """x: (B, S, d). Train, prefill and decode alike run the time-mix
+    recurrence over the S tokens, from zero states in train mode and from
+    the cached state otherwise (a right-padded prompt's pad tokens are
+    scanned into it, as in the reference). Returns (y, cache, aux), the
+    states written in place; aux is 0 (no MoE)."""
+    assert mode in ("train", "prefill", "decode"), \
+        f"the RWKV stack runs train, prefill and decode, not {mode!r}"
     eps = cfg.rmsnorm_eps
-    lp_all = params["layers"]
-    for i in range(params["ln1"].shape[0]):
-        lp = _layer(lp_all, i)
-        h = rms_norm(x, params["ln1"][i], eps)
-        tm, lt, st = rwkv_time_mix_seq(lp, h, cache["x_last_t"][i],
-                                       cache["ssm"][i], cfg)
+    train = mode == "train"
+    if train:
+        B, d = x.shape[0], cfg.d_model
+        hs = cfg.ssm.rwkv_head_size
+        state0 = torch.zeros((B, d // hs, hs, hs), device=x.device)
+        last0 = x.new_zeros((B, d))
+
+    def layer(x, lp, ln1, ln2, st, lt, lc):
+        tm, lt, st = rwkv_time_mix_seq(lp, rms_norm(x, ln1, eps), lt, st,
+                                       cfg)
         x = x + tm
-        h2 = rms_norm(x, params["ln2"][i], eps)
-        cm, lc = rwkv_channel_mix_seq(lp, h2, cache["x_last_c"][i])
-        x = x + cm
-        cache["ssm"][i].copy_(st)
-        cache["x_last_t"][i].copy_(lt)
-        cache["x_last_c"][i].copy_(lc)
-    return rms_norm(x, params["final_ln"], eps), \
-        _bump_len(cache, x.shape[1])
+        cm, lc = rwkv_channel_mix_seq(lp, rms_norm(x, ln2, eps), lc)
+        return x + cm, st, lt, lc
+
+    per_layer = zip(_unstack(params["layers"]), _unstack(params["ln1"]),
+                    _unstack(params["ln2"]))
+    for i, (lp, ln1, ln2) in enumerate(per_layer):
+        states = (state0, last0, last0) if train else (
+            cache["ssm"][i], cache["x_last_t"][i], cache["x_last_c"][i])
+        x, st, lt, lc = _run_layer(layer, remat and train, x, lp, ln1, ln2,
+                                   *states)
+        if not train:
+            cache["ssm"][i].copy_(st)
+            cache["x_last_t"][i].copy_(lt)
+            cache["x_last_c"][i].copy_(lc)
+    if not train:
+        cache = _bump_len(cache, x.shape[1])
+    return rms_norm(x, params["final_ln"], eps), cache, _train_aux(mode, x)
 
 
 # ---------------------------------------------------------------------------
@@ -369,25 +456,41 @@ def init_zamba_stack(gen: torch.Generator, cfg: ModelConfig, device):
 
 
 def apply_zamba_stack(params, x, positions, cfg: ModelConfig, cache,
-                      mode: str, window: Optional[int] = None):
+                      mode: str, window: Optional[int] = None,
+                      remat: bool = False):
     """x: (B, S, d). Before each group of ``attn_every`` Mamba2 layers the
     shared attention block (site g of the K/V cache) and the shared MLP
     run; the attention is a ring buffer over the window (4096 unless the
-    arch or ``window`` sets one). Returns (y, cache), the states written
-    in place."""
-    assert mode in ("prefill", "decode"), \
-        f"the Zamba2 stack runs prefill and decode, not {mode!r}"
+    arch or ``window`` sets one). Train mode starts the Mamba2 states at
+    zero and checkpoints each Mamba2 layer under ``remat``, as the
+    reference does. Returns (y, cache, aux), the states written in place;
+    aux is 0 (no MoE)."""
+    assert mode in ("train", "prefill", "decode"), \
+        f"the Zamba2 stack runs train, prefill and decode, not {mode!r}"
     eps = cfg.rmsnorm_eps
     L, every = cfg.num_layers, cfg.hybrid.attn_every
     win = window if window is not None else (cfg.sliding_window or 4096)
-    lens0 = cache["len"]
+    train = mode == "train"
+    if train:
+        B = x.shape[0]
+        inner, nheads, headdim, N = mamba_dims(cfg)
+        conv0 = x.new_zeros((B, cfg.ssm.conv_size - 1, inner))
+        ssm0 = torch.zeros((B, nheads, headdim, N), device=x.device)
+    else:
+        lens0 = cache["len"]
     rt = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) \
         if cfg.rope_theta > 0 else None
     attn_p = params["shared_attn"]
+    mamba_p, ln_m = _unstack(params["mamba"]), _unstack(params["ln_m"])
+
+    def mamba_layer(x, lp, ln, conv, ssm):
+        out, conv, ssm = mamba_seq(lp, rms_norm(x, ln, eps), conv, ssm, cfg)
+        return x + out, conv, ssm
+
     for g, lo in enumerate(range(0, L, every)):
         h = rms_norm(x, params["shared_ln1"], eps)
-        ck, cv = cache["k"][g], cache["v"][g]
         if mode == "decode":
+            ck, cv = cache["k"][g], cache["v"][g]
             # write first so the token attends to itself
             qkv = _project_qkv(attn_p, h, cfg, positions, rt)
             _write_kv(ck, cv, qkv[1], qkv[2], lens0, "decode")
@@ -398,17 +501,57 @@ def apply_zamba_stack(params, x, positions, cfg: ModelConfig, cache,
             attn_out, k, v = attention_block(attn_p, h, cfg, positions,
                                              mode="train", window=win,
                                              rope_tables=rt)
-            _write_kv(ck, cv, k, v, lens0, "prefill")
+            if not train:
+                _write_kv(cache["k"][g], cache["v"][g], k, v, lens0,
+                          "prefill")
         x = x + attn_out
         x = x + apply_mlp(params["shared_mlp"],
                           rms_norm(x, params["shared_ln2"], eps), cfg.act)
         for i in range(lo, min(lo + every, L)):
-            h = rms_norm(x, params["ln_m"][i], eps)
-            out, conv, ssm = mamba_seq(_layer(params["mamba"], i), h,
-                                       cache["conv"][i], cache["ssm"][i],
-                                       cfg)
-            x = x + out
-            cache["conv"][i].copy_(conv)
-            cache["ssm"][i].copy_(ssm)
-    return rms_norm(x, params["final_ln"], eps), \
-        _bump_len(cache, x.shape[1])
+            states = (conv0, ssm0) if train else (cache["conv"][i],
+                                                  cache["ssm"][i])
+            x, conv, ssm = _run_layer(mamba_layer, remat and train, x,
+                                      mamba_p[i], ln_m[i], *states)
+            if not train:
+                cache["conv"][i].copy_(conv)
+                cache["ssm"][i].copy_(ssm)
+    if not train:
+        cache = _bump_len(cache, x.shape[1])
+    return rms_norm(x, params["final_ln"], eps), cache, _train_aux(mode, x)
+
+
+# ---------------------------------------------------------------------------
+# Whisper encoder
+# ---------------------------------------------------------------------------
+
+
+def init_encoder(gen: torch.Generator, cfg: ModelConfig, device):
+    """Seeded encoder weights in the reference's layout: learned frame
+    positions and a stack of bidirectional layers."""
+    dt = torch_dtype(cfg.dtype)
+    Le, d = cfg.encoder.num_layers, cfg.d_model
+    ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)
+    return {"pos": dense_init(gen, (cfg.encoder.num_frames, d), dt, device,
+                              scale=0.02),
+            "ln1": ones(Le, d), "ln2": ones(Le, d),
+            "attn": init_attention(gen, cfg, device, stacked=Le),
+            "mlp": init_mlp(gen, cfg, device, stacked=Le),
+            "final_ln": ones(d)}
+
+
+def apply_encoder(params, frames, cfg: ModelConfig):
+    """frames: (B, S_enc, d) precomputed stub embeddings -> the encoder's
+    output (B, S_enc, d): learned positions, then pre-LayerNorm layers of
+    unmasked self-attention (no RoPE) and MLP, then a final LayerNorm."""
+    eps = cfg.rmsnorm_eps
+    ln = lambda h, w: layer_norm(h, w, torch.zeros_like(w), eps)
+    x = frames + params["pos"][None, :frames.shape[1]].to(frames.dtype)
+    B, S = x.shape[0], x.shape[1]
+    for lp in _unstack({k: params[k] for k in ("ln1", "ln2", "attn", "mlp")}):
+        q, k, v = _project_qkv(lp["attn"], ln(x, lp["ln1"]), cfg, None,
+                               rope=False)
+        out = attend_full(_expand_gqa(q, cfg.num_kv_heads), k, v,
+                          causal=False, window=0).reshape(B, S, -1)
+        x = x + matmul(out, lp["attn"]["w_o"])
+        x = x + apply_mlp(lp["mlp"], ln(x, lp["ln2"]), cfg.act)
+    return ln(x, params["final_ln"])

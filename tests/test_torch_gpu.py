@@ -603,3 +603,87 @@ def test_moe_decode_steps_make_no_synchronising_call():
         torch.cuda.set_sync_debug_mode("default")
     eng.flush()
     eng.close()
+
+
+def _train_batch(cfg, B, S, seed):
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         dtype=torch.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def test_train_step_on_cuda():
+    """Reduced smollm: the f32 loss and gradients on the card equal the
+    CPU's at 1e-4; one bf16 AdamW step on the card keeps bf16 parameters
+    that do not require grad, f32 moments, and a finite loss."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.training.optimizer import adamw_init, tree_leaves
+    from repro_torch.training.train_loop import grads_of, make_train_step
+    dev = _cuda()
+    cfg = get_arch("smollm-360m").reduced()
+    tc = TrainConfig(warmup_steps=1, total_steps=10)
+    model = Model(cfg)
+    params = model.init(seed=1, device="cpu")
+    batch = _train_batch(cfg, 4, 32, 0)
+    cpu = grads_of(model, params, batch, tc)
+    gpu = grads_of(model, _to(params, dev), _to(batch, dev), tc)
+    torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(tree_leaves(cpu[2]), tree_leaves(gpu[2])):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-3, atol=1e-4)
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    bmodel = Model(bcfg)
+    p = bmodel.init(seed=1, device=dev)
+    new, opt, m = make_train_step(bmodel, tc)(p, adamw_init(p),
+                                              _to(batch, dev))
+    assert torch.isfinite(m["loss"]) and int(opt.step) == 1
+    for a, b, mu in zip(tree_leaves(p), tree_leaves(new),
+                        tree_leaves(opt.mu)):
+        assert b.dtype == a.dtype and b.device.type == "cuda"
+        assert not b.requires_grad and mu.dtype == torch.float32
+    assert any(not torch.equal(a, b) for a, b in
+               zip(tree_leaves(p), tree_leaves(new)))
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_attend_chunked_matches_full_on_cuda(window):
+    """f32 at S = 1100 (pads to 1536 in blocks of 512): the chunked path on
+    the card equals ``attend_full`` on the card and itself on the CPU."""
+    from repro_torch.models.attention import attend_chunked, attend_full
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(7)
+    q = torch.randn(2, 1100, 2, 3, 64, generator=gen)
+    k = torch.randn(2, 1100, 2, 64, generator=gen)
+    v = torch.randn(2, 1100, 2, 64, generator=gen)
+    got = attend_chunked(q.to(dev), k.to(dev), v.to(dev), causal=True,
+                         window=window)
+    full = attend_full(q.to(dev), k.to(dev), v.to(dev), causal=True,
+                       window=window)
+    cpu = attend_chunked(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, full, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=2e-5, atol=2e-5)
+
+
+def test_checkpoint_round_trip_on_cuda(tmp_path):
+    """bf16 parameters and f32 moments on the card through
+    ``save_checkpoint``/``restore_checkpoint``: bit for bit, restored
+    onto the template's device."""
+    from repro_torch.training.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.optimizer import (adamw_init, tree_leaves,
+                                                tree_map)
+    dev = _cuda()
+    cfg = dataclasses.replace(get_arch("whisper-base").reduced(),
+                              dtype="bfloat16")
+    params = Model(cfg).init(seed=2, device=dev)
+    opt = adamw_init(params)
+    opt = opt._replace(nu=tree_map(torch.rand_like, opt.nu))
+    save_checkpoint(str(tmp_path), params, opt, step=4)
+    tmpl = Model(cfg).init(seed=3, device=dev)
+    got, gopt, step = restore_checkpoint(str(tmp_path), tmpl,
+                                         adamw_init(tmpl))
+    assert step == 4
+    for a, b in zip(tree_leaves(params), tree_leaves(got)):
+        assert b.device.type == "cuda" and b.dtype == torch.bfloat16
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    for a, b in zip(tree_leaves(opt.nu), tree_leaves(gopt.nu)):
+        assert torch.equal(a, b)

@@ -17,9 +17,25 @@ from repro_torch.models.bridge import from_jax_params
 from repro_torch.models.model import Model as TModel
 
 # (arch, window): smollm (tied head), tinyllama, qwen3 (qk_norm),
-# starcoder2 (gelu; a window of 8 < the prompt exercises the ring roll)
+# starcoder2 (gelu; a window of 8 < the prompt exercises the ring roll),
+# internvl2 (untied head; the prompt after 8 patch embeddings), whisper
+# (encoder frames, cross attention, LayerNorm, learned positions)
 ARCHS = [("smollm-360m", None), ("tinyllama-1.1b", None), ("qwen3-8b", None),
-         ("starcoder2-7b", 8)]
+         ("starcoder2-7b", 8), ("internvl2-2b", None), ("whisper-base", None)]
+
+
+def _inputs(cfg, toks, rs):
+    """The prompt batch as numpy: tokens, plus the VLM's patch
+    embeddings or the audio family's encoder frames."""
+    batch = {"tokens": toks}
+    B = toks.shape[0]
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rs.normal(size=(
+            B, cfg.frontend.num_embeddings, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        batch["frames"] = rs.normal(size=(
+            B, cfg.encoder.num_frames, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _close(a, b):
@@ -37,11 +53,13 @@ def test_prefill_and_decode_match_reference(arch, window):
     B, S, Smax = 3, 12, 24
     toks = rs.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     lens = np.array([12, 7, 9], np.int32)
+    batch = _inputs(cfg, toks, rs)
     jc = jm.init_cache(B, Smax, window=window)
     tc = tm.init_cache(B, Smax, window=window, device="cpu")
-    jl, jc = jm.prefill(p, {"tokens": jnp.asarray(toks)}, jc, window=window,
-                        true_lens=jnp.asarray(lens))
-    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tc,
+    jl, jc = jm.prefill(p, {k: jnp.asarray(v) for k, v in batch.items()}, jc,
+                        window=window, true_lens=jnp.asarray(lens))
+    tl, tc = tm.prefill(tp, {k: torch.from_numpy(v)
+                             for k, v in batch.items()}, tc,
                         window=window, true_lens=torch.from_numpy(lens))
     assert tl.dtype == torch.float32 and tl.shape == (B, cfg.vocab_size)
     _close(jl, tl)
@@ -51,7 +69,8 @@ def test_prefill_and_decode_match_reference(arch, window):
         jl, jc = jm.decode_step(p, jnp.asarray(nxt), jc, window=window)
         tl, tc = tm.decode_step(tp, torch.from_numpy(nxt), tc, window=window)
         _close(jl, tl)
-    for k in ("k", "v"):
+    assert set(tc) == set(jc)
+    for k in set(jc) - {"len", "pos"}:
         _close(jc[k], tc[k])
     np.testing.assert_array_equal(np.asarray(jc["len"]), tc["len"].numpy())
     np.testing.assert_array_equal(np.asarray(jc["pos"]), tc["pos"].numpy())
@@ -76,10 +95,3 @@ def test_bridge_keeps_bf16_bits():
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(),
                                   np.asarray(a.astype(jnp.float32)))
-
-
-def test_unported_families_raise():
-    """The VLM and audio (encoder-decoder) families are still to port."""
-    for arch in ("internvl2-2b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            TModel(tget(arch).reduced())

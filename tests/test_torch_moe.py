@@ -88,8 +88,10 @@ def test_apply_moe_drops_match_reference():
     for layer in range(jcfg.num_layers):
         jp = jax.tree_util.tree_map(lambda a: a[layer], p["stack"]["moe"])
         tpl = {k: v[layer] for k, v in tp["stack"]["moe"].items()}
-        want, _ = jmoe.apply_moe(jp, jnp.asarray(x), jcfg)
-        _close(want, tmoe.apply_moe(tpl, _t(x), tcfg))
+        want, want_aux = jmoe.apply_moe(jp, jnp.asarray(x), jcfg)
+        got, aux = tmoe.apply_moe(tpl, _t(x), tcfg)
+        _close(want, got)
+        assert aux == float(want_aux) == 0.0   # weighed by 0 outside training
         ids, _, _ = tmoe._route(tpl["router"], _t(x).reshape(32, -1),
                                 m.num_experts, m.top_k)
         load = np.bincount(ids.numpy().ravel(), minlength=m.num_experts)

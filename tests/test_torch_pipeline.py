@@ -302,8 +302,9 @@ def test_oversized_request_rejected_at_submit(model4):
 
 def test_moe_family_names_its_roadmap_item(model4):
     """The MoE family is served (its streams are held to the reference's
-    in ``test_torch_moe.py``); a recurrent family is refused with the
-    reference's message, and an unported one names ROADMAP item 4."""
+    in ``test_torch_moe.py``); a recurrent family and the VLM are refused
+    with the reference's message, and the audio family (whisper) names
+    ROADMAP Fault 7."""
     cfg = get_arch("granite-moe-1b-a400m").reduced()
     eng = PipelineEngine(cfg, TModel(cfg).init(seed=0, device="cpu"),
                          PipelineConfig(**ENGINE), device="cpu")
@@ -311,8 +312,12 @@ def test_moe_family_names_its_roadmap_item(model4):
     with pytest.raises(AssertionError, match="dense/moe decoders only"):
         PipelineEngine(get_arch("rwkv6-3b").reduced(), None,
                        PipelineConfig(**ENGINE), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TModel(get_arch("internvl2-2b").reduced())
+    with pytest.raises(AssertionError, match="dense/moe decoders only"):
+        PipelineEngine(get_arch("internvl2-2b").reduced(), None,
+                       PipelineConfig(**ENGINE), device="cpu")
+    with pytest.raises(NotImplementedError, match="Fault 7"):
+        PipelineEngine(get_arch("whisper-base").reduced(), None,
+                       PipelineConfig(**ENGINE), device="cpu")
 
 
 # ---------------------------------------------------------------------------
