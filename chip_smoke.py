@@ -165,10 +165,36 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    decode steps drawn by ``DecisionPlane.step``, prefill(21) + 3 decode
    against prefill(24) in f32 and bf16 (phase 9 (b)'s check), a train
    step with the frames, and the engine's refusal (ROADMAP Fault 7).
+11. distribution: each kernel against its plain version at the shapes a
+   rank gives it (S1 rows (2, 49152), data rows (4 and 8, 49152),
+   hierarchical blocks (8, 12288) and (4, 24576); ``gumbel_argmax`` of
+   rows from ``row0`` on ≡ those rows of the whole batch's) and timed at
+   (2, 49152) and (8, 12288); (a) a (1, 1) mesh over NCCL in this process
+   serves full-width smollm-360m, batch 8, unfiltered and greedy rows,
+   with the plane in each of the three modes: the streams equal the run
+   without a mesh; (b) four ranks spawned on this card over gloo (the
+   kernel library built before, so they only load it), on (1, 4) and
+   (2, 2) meshes: the rank's blocks of smollm-360m's decode logits
+   (prefill of 32 tokens + 3 greedy steps at B = 8, full width) through
+   S1 with ``shvs``, ``fused`` and ``gumbel``, ``vocab_gather`` and
+   ``hierarchical`` (unfiltered and greedy rows against ``shvs``,
+   filtered rows against ``truncation_first``), 4 steps each: tokens and
+   histograms equal the single-device plane's bit for bit on every rank,
+   each path's kernels launched on every rank (counts reset just before
+   the timed steps); granite-moe-1b-a400m at full width with each rank's
+   expert block decodes 4 greedy tokens through the EP MoE (the path
+   ``_prefer_scatter`` picks printed), held to the single-process engine
+   under the gap rule, and its MoE layer alone in f32 within 2e-4 (abs +
+   rel) of the local path. Each rank's step ms and collective ms (host
+   clock, the device synchronised around each collective), the bytes a
+   mode moves (reckoned from the shapes), and the collectives gloo
+   refused for CUDA tensors and that were staged through pinned host
+   memory are printed. Four ranks share one card: no time here is a
+   time across cards.
 
 ``python3 chip_smoke.py --families-only`` builds the kernels and runs
 phases 3 and 9 alone, printing one JSON line. ``--train-only`` runs
-phase 10 alone the same way.
+phase 10 alone the same way, and ``--dist-only`` phase 11.
 
 ``python3 chip_smoke.py --host-only`` builds the kernels and runs phase 5's
 ``shvs`` rows on the device and in the host pool, in turns, and the pool
@@ -192,6 +218,7 @@ The last two lines of standard output are the ``kernels`` JSON object and
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -2701,6 +2728,536 @@ def train_only(dev, card):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 11: distribution — the decision planes and the EP MoE on a mesh
+# ---------------------------------------------------------------------------
+DIST_MESHES = ((1, 4), (2, 2))        # (data, model) of the four ranks
+DIST_STEPS = 4                        # smollm logits each plane decides
+DIST_PROMPT = 32                      # prompt tokens (the engine's bucket)
+DIST_NEW = 4                          # granite greedy tokens through EP
+GRANITE = "granite-moe-1b-a400m"
+# (name, mode, the distributed plane's algorithm, the single-device
+# comparator's, params): hierarchical is held to shvs on unfiltered and
+# greedy rows and to truncation_first on filtered rows, as the reference's
+# own check does
+DIST_RUNS = (("sp_shvs", "sequence_parallel", "shvs", "shvs", "mixed"),
+             ("sp_fused", "sequence_parallel", "fused", "fused", "mixed"),
+             ("sp_gumbel", "sequence_parallel", "gumbel", "gumbel", "mixed"),
+             ("vocab_gather", "vocab_gather", "shvs", "shvs", "mixed"),
+             ("hier", "hierarchical", "shvs", "shvs", "unfiltered"),
+             ("hier_filtered", "hierarchical", "shvs", "truncation_first",
+              "filtered"))
+# the kernels each run must launch on every rank
+DIST_KERNELS = {"sp_shvs": ("penalty_scale", "shvs_masses"),
+                "sp_fused": ("fused_sample",),
+                "sp_gumbel": ("penalty_scale", "gumbel_argmax"),
+                "vocab_gather": ("penalty_scale", "shvs_masses"),
+                "hier": ("penalty_scale",), "hier_filtered": ("penalty_scale",)}
+
+
+def dist_params(kind, B, dev):
+    """Per-row sampling controls of phase 11's runs: "mixed" cycles
+    unfiltered τ = 0.8, greedy, top-k 50 and top-p 0.9 rows; "unfiltered"
+    alternates τ = 0.8 and greedy; "filtered" top-k 50 and top-p 0.9;
+    each with repetition 1.2, presence 0.1, frequency 0.05. "greedy":
+    argmax rows without penalties (an engine's greedy request)."""
+    import torch
+    from repro_torch.core.sampling import SamplingParams
+    rows = {"mixed": [(0.8, 0, 1.0), (0.0, 0, 1.0), (0.9, 50, 1.0),
+                      (0.8, 0, 0.9)],
+            "unfiltered": [(0.8, 0, 1.0), (0.0, 0, 1.0)],
+            "filtered": [(0.9, 50, 1.0), (0.8, 0, 0.9)],
+            "greedy": [(0.0, 0, 1.0)]}[kind]
+    pen = (1.0, 0.0, 0.0) if kind == "greedy" else (1.2, 0.1, 0.05)
+    rows = [rows[b % len(rows)] for b in range(B)]
+    f = lambda i, dt: torch.tensor([r[i] for r in rows], dtype=dt,
+                                   device=dev)
+    full = lambda v: torch.full((B,), v, dtype=torch.float32, device=dev)
+    return SamplingParams(
+        temperature=f(0, torch.float32), top_k=f(1, torch.int32),
+        top_p=f(2, torch.float32), min_p=full(0.0),
+        repetition_penalty=full(pen[0]), presence_penalty=full(pen[1]),
+        frequency_penalty=full(pen[2]))
+
+
+def dist_plane(V, algorithm, mode, dev):
+    from repro_torch.config import SHVSConfig
+    from repro_torch.core.decision_plane import DecisionPlane
+    return DecisionPlane(V, algorithm=algorithm,
+                         shvs=SHVSConfig(hot_size=H_MAIN),
+                         sampling_parallelism=mode, k_cap=K_CAP, seed=0,
+                         device=dev)
+
+
+def dist_bytes(mode, B, V, dp, tp, kc=K_CAP):
+    """Bytes a rank receives a decision step, reckoned from the shapes
+    (f32 logits, int32 tokens, int64 draws)."""
+    b = B // dp
+    if mode == "vocab_gather":
+        return b * V * (tp - 1) // tp * 4
+    if mode == "sequence_parallel":
+        return b * (V // tp) * (tp - 1) // tp * 4 + b // tp * (tp - 1) * 4
+    # pmax of (b,), the gather of (b, 2·kc + 4), the psum of (2, b) int64
+    return (tp - 1) * (b * 4 + b * (2 * kc + 4) * 4 + 2 * b * 8)
+
+
+def check_rank_shapes(dev):
+    """Each kernel against its plain version at the shapes phase 11's
+    ranks give it: S1 rows (2, 49152) and data rows (4 and 8, 49152), and
+    the hierarchical blocks (8, 12288) and (4, 24576); ``gumbel_argmax``
+    of rows from ``row0`` on equals those rows of the whole batch's."""
+    import torch
+    from repro_torch.kernels import (fused_kernel, gumbel_kernel,
+                                     penalty_kernel, ref, shvs_kernel)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    err = {}
+    for B, V in ((2, V_MAIN), (4, V_MAIN), (8, V_MAIN // 4),
+                 (4, V_MAIN // 2)):
+        x = make_inputs(B, V, gen, dev)
+        args = (x["z"], x["cp"], x["co"], x["rep"], x["pres"], x["freq"],
+                x["temp"])
+        got, want = penalty_kernel.penalty_scale(*args), ref.penalty_ref(*args)
+        assert torch.equal(got, want), ("penalty_scale", B, V)
+        err["penalty_scale"] = 0.0
+        if V != V_MAIN:
+            continue
+        hot = hot_mask(V, "first", dev)
+        g, w = shvs_kernel.shvs_masses(want, hot), ref.shvs_mass_ref(want, hot)
+        assert torch.equal(g[0], w[0]) and torch.equal(g[3], w[3])
+        for a, b in zip(g[1:3], w[1:3]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+        err["shvs_masses"] = max(err.get("shvs_masses", 0.0), max(
+            (a - b).abs().max().item() for a, b in zip(g, w)))
+        f_args = args + (x["top_k"], x["top_p"], x["min_p"], x["u"], hot)
+        g = fused_kernel.fused_sample(*f_args, k_cap=K_CAP, block_v=BLOCK_V)
+        w = ref.fused_sample_ref(*f_args, k_cap=K_CAP, block_v=BLOCK_V)
+        for i in (0, 1, 3):
+            assert torch.equal(g[i], w[i]), ("fused_sample", B, V, i)
+        torch.testing.assert_close(g[2], w[2], rtol=1e-5, atol=0)
+        err["fused_sample"] = max(err.get("fused_sample", 0.0),
+                                  (g[2] - w[2]).abs().max().item())
+    z = torch.randn((B_MAIN, V_MAIN), generator=gen, device=dev) * 2.0
+    whole = gumbel_kernel.gumbel_argmax(z, 77)
+    for row0 in (0, 2, 6):
+        got = gumbel_kernel.gumbel_argmax(z[row0:row0 + 2].contiguous(), 77,
+                                          row0)
+        assert torch.equal(got, ref.gumbel_argmax_ref(z[row0:row0 + 2], 77,
+                                                      row0)), row0
+        assert torch.equal(got, whole[row0:row0 + 2]), row0
+    err["gumbel_argmax"] = 0.0
+    torch.cuda.synchronize()
+    print(f"phase 11 kernel checks at the ranks' shapes ((2|4|8, 49152), "
+          f"(8, 12288), (4, 24576); gumbel rows from row0 2 and 6): ok, "
+          f"max abs err {err}")
+    # times at an S1 rank's rows and a hierarchical rank's block (1, 4),
+    # warm in L2 as the decode step finds them
+    out = {"max_abs_err": err}
+    for shape, (B, V) in (("sp_rows", (2, V_MAIN)),
+                          ("hier_block", (B_MAIN, V_MAIN // 4))):
+        timing, bounds = time_kernels(B, V, gen, dev, 1, 1), \
+            kernel_bounds(B, V)
+        out[shape] = {}
+        for name, (k_ms, p_ms, kl_ms, _) in timing.items():
+            b_ms, b_by, _ = bounds[name]
+            out[shape][name] = {"ms": k_ms, "launch_ms": kl_ms,
+                                "plain_ms": p_ms, "bound_ms": b_ms,
+                                "bound_by": b_by}
+            print(f"phase 11 {name} at ({B}, {V}): {k_ms:.4f} ms device "
+                  f"({kl_ms:.4f} with launch), plain {p_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}), share {b_ms / k_ms:.1%} "
+                  f"[{card_line()}]")
+    return out
+
+
+def dist_one_rank(dev, card):
+    """Phase 11 (a): a (1, 1) mesh over NCCL in this process serves
+    full-width smollm-360m, batch 8, with the plane in each mode; the
+    streams must equal the run without a mesh, bit for bit."""
+    import dataclasses
+    import socket
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import (build_engine, serve_batch,
+                                          synth_requests)
+    from repro_torch.models import dist
+    from repro_torch.models.model import Model
+    from repro_torch.config import get_arch
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_local_mesh(1, 1)
+        params = Model(get_arch("smollm-360m")).init(seed=0, device=dev)
+
+        def run(mode, on_mesh):
+            eng = build_engine("smollm-360m", False, "shvs", B_MAIN, 256,
+                               device=dev, params=params,
+                               sampling_parallelism=mode)
+            reqs = synth_requests(8, V_MAIN, 16, seed=0)
+            for i, r in enumerate(reqs):
+                r.sampling = dataclasses.replace(
+                    r.sampling, top_k=0, top_p=1.0,
+                    temperature=0.0 if i % 2 else 0.8)
+            with dist.use_mesh(mesh if on_mesh else None):
+                rep = serve_batch(eng, reqs)
+            eng.close()
+            return [r.output for r in reqs], rep
+
+        want, _ = run("sequence_parallel", False)
+        out = {}
+        for mode in ("sequence_parallel", "vocab_gather", "hierarchical"):
+            got, rep = run(mode, True)
+            assert got == want, (mode, got, want)
+            out[mode] = {"tpot_p50_ms": rep["tpot_p50_ms"],
+                         "tokens": rep["tokens"]}
+            print(f"phase 11 (a) (1, 1) NCCL mesh, {mode}: streams equal "
+                  f"the run without a mesh ({rep['tokens']} tokens), TPOT "
+                  f"p50 {rep['tpot_p50_ms']:.2f} ms [{card}]")
+        out["collectives"] = dist.collective_stats()
+        dist.reset_collective_stats()
+        assert out["collectives"], "the (1, 1) mesh ran no NCCL collective"
+    finally:
+        tdist.destroy_process_group()
+    return out
+
+
+def dist_prepare(dev, work):
+    """The single-process side of phase 11 (b): smollm-360m's decode logits
+    (prefill + greedy decode at B = 8) and the single-device plane's tokens
+    and histograms over them for each run; granite's engine streams
+    (greedy, 32-token prompts). Written to ``work`` for the ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.engine.request import Request
+    from repro_torch.config import SamplingConfig
+    from repro_torch.models.model import Model
+    rs = np.random.default_rng(11)
+    cfg = get_arch("smollm-360m")
+    model = Model(cfg)
+    params = model.init(seed=0, device=dev)
+    prompts = torch.from_numpy(rs.integers(1, V_MAIN, (B_MAIN, DIST_PROMPT))
+                               ).to(dev)
+    with torch.no_grad():
+        cache = model.init_cache(B_MAIN, 256, device=dev)
+        lg, cache = model.prefill(params, {"tokens": prompts}, cache)
+        logits = [lg]
+        for _ in range(DIST_STEPS - 1):
+            lg, cache = model.decode_step(params, lg.argmax(-1), cache)
+            logits.append(lg)
+    logits = torch.stack(logits)
+    del params, cache
+    single = {}
+    for name, mode, _, cmp, kind in DIST_RUNS:
+        plane = dist_plane(V_MAIN, cmp, "sequence_parallel", dev)
+        st = plane.init_state(B_MAIN, prompt_tokens=prompts)
+        p = dist_params(kind, B_MAIN, dev)
+        toks = []
+        for s in range(DIST_STEPS):
+            t, st, _ = plane.step(logits[s], st, p, s)
+            toks.append(t)
+        single[name] = {"tokens": torch.stack(toks).cpu(),
+                        "counts": st.output_counts.cpu()}
+    torch.save({"logits": logits.cpu(), "prompts": prompts.cpu(),
+                "single": single}, work / "smollm.pt")
+
+    gcfg = get_arch(GRANITE)
+    gparams = Model(gcfg).init(seed=0, device=dev)
+    gprompts = rs.integers(1, gcfg.vocab_size, (B_MAIN, DIST_PROMPT))
+    eng = family_engine(GRANITE, "shvs", dev, gparams)
+    reqs = [Request(request_id=i, prompt=gprompts[i].tolist(),
+                    max_new_tokens=DIST_NEW,
+                    sampling=SamplingConfig(greedy=True))
+            for i in range(B_MAIN)]
+    serve_batch(eng, reqs)
+    torch.save({"prompts": torch.from_numpy(gprompts)}, work / "granite.pt")
+    return single, eng, reqs
+
+
+def dist_four_ranks(dev, card, work):
+    """Phase 11 (b): four ranks spawned on this card (``dev``), over gloo;
+    the kernel library is already built, so they only load it."""
+    import os
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env["OMP_NUM_THREADS"] = "2"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank", str(r),
+         "--dist-world", "4", "--dist-port", str(port), "--dist-dir",
+         str(work), "--dist-device", str(dev)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logdir = ROOT / "chiprun_out"
+    logdir.mkdir(exist_ok=True)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        (logdir / f"dist_rank{r}.log").write_text(log)
+        if p.returncode != 0:
+            print(log[-6000:])
+        assert p.returncode == 0, f"rank {r} exited with {p.returncode}"
+    return json.loads((work / "ranks.json").read_text())
+
+
+def dist_rank_main(args):
+    """One of phase 11 (b)'s four ranks: every plane run and the EP MoE on
+    both meshes; rank 0 writes ``ranks.json``."""
+    import dataclasses
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import dist, moe
+    from repro_torch.models.model import Model
+    work = Path(args.dist_dir)
+    dev = torch.device(args.dist_device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rank = args.dist_rank
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                             f"{args.dist_port}", world_size=args.dist_world,
+                             rank=rank)
+    sm = torch.load(work / "smollm.pt")
+    gp = torch.load(work / "granite.pt")["prompts"]
+    gcfg = get_arch(GRANITE)
+    gmodel = Model(gcfg)
+    gfull = gmodel.init(seed=0, device=dev)
+    out = {}
+
+    def block(x, spec, mesh):
+        return sharding.local_shard(x, spec, mesh).contiguous()
+
+    for shape in DIST_MESHES:
+        mesh = make_local_mesh(*shape)
+        tag = f"{shape[0]}x{shape[1]}"
+        dp, tp = shape
+        with dist.use_mesh(mesh):
+            r0, n = dist.rows(B_MAIN, ("data",))
+            for name, mode, algo, _, kind in DIST_RUNS:
+                plane = dist_plane(V_MAIN, algo, mode, dev)
+                st = plane.init_state(B_MAIN, prompt_tokens=sm["prompts"]
+                                      .to(dev))
+                specs = sharding.decision_state_shardings(
+                    st, mesh, ("data",), mode)
+                st = type(st)(*(block(x, s, mesh) for x, s in zip(st, specs)))
+                p = dist_params(kind, B_MAIN, dev)
+                zs = [block(sm["logits"][s].to(dev), ("data", "model"), mesh)
+                      for s in range(DIST_STEPS)]
+                plane.step(zs[0], st, p, 0)          # warm-up: not counted
+                sync(dev)
+                dist.reset_collective_stats()
+                dist.set_timing(True)
+                ops.reset_launch_counts()
+                toks, t0 = [], time.perf_counter()
+                for s in range(DIST_STEPS):
+                    t, st, _ = plane.step(zs[s], st, p, s)
+                    toks.append(t)
+                sync(dev)
+                wall = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+                launches = ops.launch_counts()
+                dist.set_timing(False)
+                coll = dist.collective_stats()
+                toks = torch.stack(toks)
+                counts = st.output_counts
+                if mode == "hierarchical":
+                    counts = dist.all_gather(counts, "model", dim=1,
+                                             tiled=True)
+                    rows_axes = ("data",)
+                elif mode == "sequence_parallel":
+                    rows_axes = ("data", "model")
+                else:
+                    rows_axes = ("data",)
+                counts = dist.all_gather(counts, rows_axes, dim=0, tiled=True)
+                toks = dist.all_gather(toks, "data", dim=1, tiled=True)
+                want = sm["single"][name]
+                ok = torch.equal(toks.cpu(), want["tokens"]) and \
+                    torch.equal(counts.cpu(), want["counts"])
+                rec = {"ok": ok, "step_ms": wall, "launches": launches,
+                       "collective_ms": 1e3 * sum(
+                           c["seconds"] for c in coll.values()) / DIST_STEPS,
+                       "collectives": coll,
+                       "bytes_reckoned": dist_bytes(mode, B_MAIN, V_MAIN,
+                                                    dp, tp),
+                       "logits_block": list(zs[0].shape), "state": list(
+                           st.output_counts.shape)}
+                if not ok:
+                    rec["tokens"] = toks.tolist()
+                    rec["want"] = want["tokens"].tolist()
+                out.setdefault(tag, {}).setdefault(name, {})[rank] = rec
+                print(f"{tag} {name}: logits block {rec['logits_block']}, "
+                      f"state {rec['state']}, step "
+                      f"{wall:.3f} ms, collectives "
+                      f"{rec['collective_ms']:.3f} ms, launches {launches}, "
+                      f"equal to the single device: {ok}")
+
+            # granite: greedy decode through the EP MoE
+            gp_loc = sharding.shard_tree(gfull, mesh, gcfg)
+            plane = dist_plane(gcfg.vocab_size, "shvs", "sequence_parallel",
+                               dev)
+            greedy = dist_params("greedy", B_MAIN, dev)
+            st = plane.init_state(B_MAIN)
+            specs = sharding.decision_state_shardings(
+                st, mesh, ("data",), "sequence_parallel")
+            st = type(st)(*(block(x, s, mesh) for x, s in zip(st, specs)))
+            cache = gmodel.init_cache(n, 256, device=dev)
+            x_probe = torch.zeros((n, 1, gcfg.d_model), dtype=torch.bfloat16,
+                                  device=dev)
+            path = "scatter" if moe._prefer_scatter(
+                x_probe, gcfg, dist.get_ctx()) else "gather"
+            ops.reset_launch_counts()
+            dist.reset_collective_stats()
+            sync(dev)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                lg, cache = gmodel.prefill(
+                    gp_loc, {"tokens": gp[r0:r0 + n].to(dev)}, cache)
+                toks = []
+                for i in range(DIST_NEW):
+                    t, st, _ = plane.step(lg, st, greedy, i)
+                    toks.append(t)
+                    if i + 1 < DIST_NEW:
+                        lg, cache = gmodel.decode_step(gp_loc, t, cache)
+            sync(dev)
+            g_ms = (time.perf_counter() - t0) * 1e3
+            toks = dist.all_gather(torch.stack(toks, 1), "data", dim=0,
+                                   tiled=True)
+            g_rec = {"path": path, "tokens": toks.tolist(), "ms": g_ms,
+                     "launches": ops.launch_counts(),
+                     "expert_block": list(gp_loc["stack"]["moe"]["w_gate"]
+                                          .shape),
+                     "collectives": dist.collective_stats()}
+            # the MoE layer alone in f32: EP against the local path
+            mp = {k: gfull["stack"]["moe"][k][0].float()
+                  for k in ("router", "w_gate", "w_up", "w_down")}
+            gen = torch.Generator(device=dev).manual_seed(5)
+            x = 0.5 * torch.randn((B_MAIN, 4, gcfg.d_model), generator=gen,
+                                  device=dev)
+            cfg32 = dataclasses.replace(gcfg, dtype="float32")
+            with dist.use_mesh(None):
+                y_loc, _ = moe.apply_moe(mp, x, cfg32)
+            mp_blk = sharding.shard_tree({"stack": {"moe": mp}}, mesh,
+                                         cfg32)["stack"]["moe"]
+            y_ep, _ = moe.apply_moe(mp_blk, x[r0:r0 + n], cfg32)
+            want = y_loc[r0:r0 + n]
+            g_rec["moe_f32_err_over_tol"] = float(
+                ((y_ep - want).abs() / (2e-4 + 2e-4 * want.abs())).max())
+            g_rec["moe_f32_max_abs_err"] = float((y_ep - want).abs().max())
+            out.setdefault(tag, {}).setdefault("granite", {})[rank] = g_rec
+            print(f"{tag} granite EP ({path}): experts "
+                  f"{g_rec['expert_block']}, {DIST_NEW} greedy tokens in "
+                  f"{g_ms:.1f} ms, launches {g_rec['launches']}, MoE f32 "
+                  f"max abs err {g_rec['moe_f32_max_abs_err']:.3g}")
+            del gp_loc
+    out["staged"] = list(dist.staged_collectives())
+    gathered = [None] * args.dist_world
+    tdist.all_gather_object(gathered, out)
+    if rank == 0:
+        merged = {"staged": sorted({s for o in gathered for s in o["staged"]})}
+        for o in gathered:
+            for tag, runs in o.items():
+                if tag == "staged":
+                    continue
+                for name, per in runs.items():
+                    merged.setdefault(tag, {}).setdefault(name, {}).update(
+                        {str(k): v for k, v in per.items()})
+        (work / "ranks.json").write_text(json.dumps(merged))
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def sync(dev):
+    """Wait for ``dev``'s stream (nothing to wait for on the CPU)."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dist_phase(dev, card):
+    """Phase 11: (a) the one-rank NCCL mesh; kernel checks at the ranks'
+    shapes; (b) the four gloo ranks on this card, their results held to
+    the single-device plane and the single-process granite engine."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"kernels": check_rank_shapes(dev)}
+    out["one_rank_nccl"] = dist_one_rank(dev, card)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    try:
+        single, eng, greqs = dist_prepare(dev, work)
+        ranks = dist_four_ranks(dev, card, work)
+        print(f"phase 11 (b): collectives gloo staged through pinned host "
+              f"memory: {ranks['staged'] or 'none'}")
+        out["staged"] = ranks["staged"]
+        for shape in DIST_MESHES:
+            tag = f"{shape[0]}x{shape[1]}"
+            runs = ranks[tag]
+            for name, *_ in DIST_RUNS:
+                per = runs[name]
+                assert len(per) == 4, (tag, name, sorted(per))
+                for r, rec in sorted(per.items()):
+                    assert rec["ok"], (tag, name, r, rec.get("tokens"),
+                                       rec.get("want"))
+                    for k in DIST_KERNELS[name]:
+                        assert rec["launches"][k] > 0, (tag, name, r,
+                                                        rec["launches"])
+                step = max(rec["step_ms"] for rec in per.values())
+                coll = max(rec["collective_ms"] for rec in per.values())
+                print(f"phase 11 (b) {tag} {name}: tokens and histograms "
+                      f"equal the single device on all 4 ranks; slowest "
+                      f"rank {step:.3f} ms a step, {coll:.3f} ms of it in "
+                      f"collectives (host clock, one card: no cross-card "
+                      f"time); {per['0']['bytes_reckoned']} B received a "
+                      f"rank a step (reckoned); launches per rank "
+                      f"{[{k: v for k, v in per[str(r)]['launches'].items() if v} for r in range(4)]} "
+                      f"[{card}]")
+            g = runs["granite"]
+            toks = [g[str(r)]["tokens"] for r in range(4)]
+            assert all(t == toks[0] for t in toks), "ranks disagree"
+            for r in range(4):
+                assert g[str(r)]["moe_f32_err_over_tol"] <= 1.0, g[str(r)]
+            got = [copy.copy(q) for q in greqs]
+            for q, t in zip(got, toks[0]):
+                q.output = list(t)
+            cmp = gap_checked(eng, greqs, got, dev, f"granite EP {tag}")
+            print(f"phase 11 (b) {tag} granite EP path {g['0']['path']}: "
+                  f"greedy agreement with the single-process engine "
+                  f"{cmp['agreement']:.3f} (first difference "
+                  f"{cmp['first_difference']}); MoE layer f32 max abs err "
+                  f"{max(g[str(r)]['moe_f32_max_abs_err'] for r in range(4)):.3g}"
+                  f" [{card}]")
+            runs["granite_agreement"] = cmp
+        out["four_ranks"] = ranks
+        eng.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
+def dist_only(dev, card):
+    """``--dist-only``: phase 11 alone; prints one JSON line."""
+    print(json.dumps({"dist_only": {"card": card,
+                                    "runs": dist_phase(dev, card)}}))
+    return 0
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2914,6 +3471,19 @@ def main() -> int:
                     help="build the kernels and run phase 10 (training, "
                          "the VLM and audio inputs, chunked attention) "
                          "only; prints one JSON line")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="build the kernels and run phase 11 (the "
+                         "distributed planes and the EP MoE: a one-rank "
+                         "NCCL mesh, four gloo ranks on this card) only; "
+                         "prints one JSON line")
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-world", type=int, default=4,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-port", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-device", default="cuda", help=argparse.SUPPRESS)
     ap.add_argument("--switch-interval", type=float, default=None,
                     help="sys.setswitchinterval(seconds) before anything "
                          "runs: how often Python threads (the gateway's "
@@ -2931,6 +3501,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if args.dist_rank is not None:          # one of phase 11's ranks
+        return dist_rank_main(args)
     from repro_torch.kernels import _build, fused_kernel, gumbel_kernel, \
         ops, penalty_kernel, shvs_kernel
     dev = torch.device("cuda", 0)
@@ -2978,6 +3550,8 @@ def main() -> int:
         return families_only(dev, card)
     if args.train_only:
         return train_only(dev, card)
+    if args.dist_only:
+        return dist_only(dev, card)
 
     t_phase = time.perf_counter()
 
@@ -3007,6 +3581,7 @@ def main() -> int:
     phase_done(9)
     train_runs = train_phase(dev, card)
     phase_done(10)
+    dist_runs = dist_phase(dev, card)          # prints its own seconds
 
     launch_of = {"penalty_scale": counts["shvs"]["penalty_scale"],
                  "shvs_masses": counts["shvs"]["shvs_masses"],
@@ -3032,7 +3607,7 @@ def main() -> int:
               "step_profile": steps, "host_placement": host_runs,
               "pipeline": pipeline_runs, "migration": migration_runs,
               "families": family_runs, "family_launches": family_counts,
-              "training": train_runs,
+              "training": train_runs, "distribution": dist_runs,
               "fused_large_k": large_k,
               "gumbel_sass": sass,
               "gumbel_issue_floor": floor}

@@ -59,6 +59,10 @@ class SamplerBackend:
     #: a backend that applies Eq. 1 penalties itself, inside its own pass;
     #: the shell then hands it RAW (post-bias/mask) logits plus ``state=``
     fuses_penalties: bool = False
+    #: a backend whose draw is keyed on the operand's row index; the shell
+    #: then passes ``row0=``, the global index of the operand's first row
+    #: (non-zero when a rank decides a block of the batch)
+    keys_rows: bool = False
 
     def init_state(self, batch: int, vocab_size: int, prompt_tokens=None,
                    prompt_lens=None, device="cpu") -> pen.PenaltyState:
@@ -197,24 +201,28 @@ class GumbelBackend(SamplerBackend):
     truncation-first path. As in the reference, both draws run for every
     row and the row's controls select.
 
-    The Gumbel noise is keyed on ``(seed, step_idx)`` and the operand row:
-    reproducible run to run, but not invariant to the schedule. ``seed32``
+    The Gumbel noise is keyed on ``(seed, step_idx)`` and the batch row
+    (``row0`` plus the operand's row, so a rank deciding rows of a larger
+    batch draws their noise): reproducible run to run, but not invariant
+    to the schedule. ``seed32``
     wraps in int32 as the reference's does; the kernel takes its uint32
     bits, so ``step_idx`` must be a host integer (never read back from the
     device).
     """
 
     name = "gumbel"
+    keys_rows = True
 
     def __init__(self, *, k_cap: int = 1024, seed: int = 0, **_):
         self.k_cap = k_cap
         self.seed = seed
 
-    def step(self, z, params, uniforms, *, step_idx):
+    def step(self, z, params, uniforms, *, step_idx, row0: int = 0):
         from repro_torch.kernels import ops
         zs = temperature_scale(z, params.temperature)
         seed32 = (int(self.seed) * 1000003 + int(step_idx)) & 0xFFFFFFFF
-        fast = ops.fused_gumbel_argmax(zs, seed32)
+        fast = ops.fused_gumbel_argmax(zs, seed32, row0) if row0 \
+            else ops.fused_gumbel_argmax(zs, seed32)
         res = truncation_first_sample(z, params, uniforms[:, 1],
                                       k_cap=self.k_cap)
         has_filter = (params.top_k > 0) | (params.top_p < 1.0) | \

@@ -112,6 +112,9 @@ class EngineConfig:
     max_seq_len: int = 512           # cache capacity per slot
     algorithm: str = "shvs"          # decision-plane algorithm
     shvs: SHVSConfig = SHVSConfig()
+    # decision-plane placement on a mesh (the identity without one):
+    # "sequence_parallel" | "vocab_gather" | "hierarchical"
+    sampling_parallelism: str = "sequence_parallel"
     k_cap: int = 256
     seed: int = 0
     prompt_bucket: int = 32          # prompts padded to multiples of this
@@ -381,6 +384,7 @@ class Engine:
         self.decision = DecisionPlane(
             model_cfg.vocab_size, algorithm=engine_cfg.algorithm,
             shvs=engine_cfg.shvs, hot_set=hot_set,
+            sampling_parallelism=engine_cfg.sampling_parallelism,
             k_cap=min(engine_cfg.k_cap, model_cfg.vocab_size),
             seed=engine_cfg.seed, device=self.device)
         # "adaptive" (§15) starts on the device — the better placement at

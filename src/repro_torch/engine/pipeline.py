@@ -260,6 +260,7 @@ class PipelineEngine:
         self.decision = DecisionPlane(
             model_cfg.vocab_size, algorithm=engine_cfg.algorithm,
             shvs=engine_cfg.shvs, hot_set=hot_set,
+            sampling_parallelism=engine_cfg.sampling_parallelism,
             k_cap=min(engine_cfg.k_cap, model_cfg.vocab_size),
             seed=engine_cfg.seed, device=self.device)
         # "host" ships last-stage logits to the CPU sampler pool

@@ -30,8 +30,8 @@ REPLACES = "src/repro/kernels/gumbel_kernel.py:73"
 #: kernel launches since the last reset (``ops.reset_launch_counts``)
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _FN = None          # the entry point, looked up once (the host's cost a call)
 
 
@@ -62,9 +62,10 @@ def noise_check(device) -> int:
     return int(bad.item())
 
 
-def gumbel_argmax(z, seed: int):
+def gumbel_argmax(z, seed: int, row0: int = 0):
     """z (B, V) f32; ``seed`` the uint32 bits of the reference's int32
-    seed. Returns tokens (B,) int32."""
+    seed; ``row0`` the batch row of z's first row (the hash's b is row0
+    plus the operand row). Returns tokens (B,) int32."""
     global launches, _FN
     dev = _build.cuda_device(z)
     B, V = z.shape
@@ -73,8 +74,8 @@ def gumbel_argmax(z, seed: int):
     if _FN is None:
         _FN = _build.function("gumbel_argmax", _ARGTYPES)
     with torch.cuda.device(dev):
-        rc = _FN(zp, int(seed) & 0xFFFFFFFF, tokens.data_ptr(), B, V,
-                 _build.stream(dev))
+        rc = _FN(zp, int(seed) & 0xFFFFFFFF, int(row0), tokens.data_ptr(),
+                 B, V, _build.stream(dev))
     _build.check_rc(NAME, rc)
     with _build.COUNT_LOCK:     # replicas launch from their own threads
         launches += 1

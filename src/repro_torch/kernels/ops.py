@@ -58,10 +58,10 @@ def fused_sample(logits, counts_p, counts_o, params, u_row, hot_mask, *,
     return fused_kernel.fused_sample(*args, k_cap=k_cap, block_v=block_v)
 
 
-def fused_gumbel_argmax(z, seed: int):
+def fused_gumbel_argmax(z, seed: int, row0: int = 0):
     """Single-pass Gumbel-max draw ``argmax_v(z + G(hash(seed, b, v)))`` on
-    (B, V) f32 logits; ``seed`` is the uint32 bits of the reference's int32
-    seed. Returns tokens (B,) int32."""
+    (B, V) f32 logits, b = ``row0`` + the operand's row; ``seed`` is the
+    uint32 bits of the reference's int32 seed. Returns tokens (B,) int32."""
     if z.device.type == "cpu":
-        return ref.gumbel_argmax_ref(z, seed)
-    return gumbel_kernel.gumbel_argmax(z, seed)
+        return ref.gumbel_argmax_ref(z, seed, row0)
+    return gumbel_kernel.gumbel_argmax(z, seed, row0)

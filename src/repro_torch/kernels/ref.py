@@ -71,7 +71,7 @@ def _hash_uniform(seed, b, v):
     return (x.float() + 0.5) * (1.0 / 4294967296.0)
 
 
-def gumbel_argmax_ref(z, seed):
+def gumbel_argmax_ref(z, seed, row0: int = 0):
     """Single-pass categorical draw via the Gumbel-max trick:
     ``argmax_v(z_v + G_v)``, ``G_v = -log(-log(U_v))`` with ``U_v =
     _hash_uniform(seed, b, v)`` for row b and column v of the operand. The
@@ -79,10 +79,11 @@ def gumbel_argmax_ref(z, seed):
     ``jnp.argmax``. A column with U == 1.0 gets G = +inf and wins whatever
     its logit (the reference's hash does the same).
 
-    z: (B, V) f32; seed: the uint32 bits of the reference's int32 seed.
+    z: (B, V) f32; seed: the uint32 bits of the reference's int32 seed;
+    ``row0``: the batch row of z's first row (b = row0 + the operand row).
     Returns tokens (B,) int32."""
     B, V = z.shape
-    b = torch.arange(B, device=z.device)[:, None]
+    b = torch.arange(row0, row0 + B, device=z.device)[:, None]
     v = torch.arange(V, device=z.device)[None, :]
     u = _hash_uniform(seed, b, v)
     g = -torch.log(-torch.log(u))

@@ -75,7 +75,8 @@ def build_engine(arch: str, reduced: bool, algorithm: str, batch: int,
                  stages: int = 1, microbatches: int = 0, samplers: int = 2,
                  sampler_mode: str = None, pool_algorithm: str = None,
                  telemetry: Telemetry = None, weights: str = None,
-                 k_cap: int = 256, device="cuda", params=None):
+                 k_cap: int = 256, device="cuda", params=None,
+                 sampling_parallelism: str = "sequence_parallel"):
     """An engine over ``arch`` (an arch id, or a ``ModelConfig``) on
     ``device``: a seeded random init, the
     tree in ``weights`` (an npz of ``models.bridge.save_npz``), or
@@ -94,7 +95,8 @@ def build_engine(arch: str, reduced: bool, algorithm: str, batch: int,
                   shvs=SHVSConfig(hot_size=min(1024, cfg.vocab_size // 4)),
                   k_cap=min(k_cap, cfg.vocab_size), seed=seed, cache=cache,
                   block_size=block_size, num_blocks=num_blocks,
-                  samplers=samplers, pool_algorithm=pool_algorithm)
+                  samplers=samplers, pool_algorithm=pool_algorithm,
+                  sampling_parallelism=sampling_parallelism)
     if stages > 1 or microbatches:
         if prompt_chunk:
             raise ValueError(

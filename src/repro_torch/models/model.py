@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import dist
 from repro_torch.models.layers import (dense_init, embed, init_embeddings,
                                       lm_head, torch_dtype)
 from repro_torch.models.transformer import (apply_dense_stack, apply_encoder,
@@ -110,6 +111,27 @@ class Model:
                                  **kw)
 
     @staticmethod
+    def _logits(params, y):
+        """The LM head. Under a mesh whose model axes' size t divides V,
+        only the rank's V block (``(b, V/t)``: columns ``r·V/t`` on, r its
+        model index) — the logits leave the head sharded (B@batch,
+        V@model), the paper's starting condition for the decision plane;
+        whole rows otherwise. The head's weight is whole on every rank
+        (the dense weights are replicated), and the block is its slice."""
+        emb = params["emb"]
+        ctx = dist.get_ctx()
+        tp = ctx.axis_size(ctx.model_axes)
+        V = emb["head"].shape[-1] if "head" in emb else emb["tok"].shape[0]
+        if not ctx.active or tp <= 1 or V % tp:
+            return lm_head(emb, y)
+        lo = dist.axis_index(ctx.model_axes) * (V // tp)
+        if "head" in emb:
+            block = {"head": emb["head"][:, lo:lo + V // tp]}
+        else:
+            block = {"tok": emb["tok"][lo:lo + V // tp]}
+        return lm_head(block, y)
+
+    @staticmethod
     def _patches(batch) -> int:
         pe = batch.get("patch_embeds")
         return 0 if pe is None else pe.shape[1]
@@ -124,7 +146,7 @@ class Model:
                                 remat=remat, enc_out=enc_out)
         if self.cfg.family == "vlm":
             y = y[:, self._patches(batch):]
-        return lm_head(params["emb"], y), aux
+        return self._logits(params, y), aux
 
     def prefill(self, params, batch, cache, window=None, true_lens=None):
         """Process prompts (fresh rows). Returns (last-pos logits (B,V),
@@ -144,7 +166,7 @@ class Model:
             cache["len"] = torch.zeros_like(cache["len"]) + off + true_lens
         else:
             y_last = y[:, -1]
-        return lm_head(params["emb"], y_last), cache
+        return self._logits(params, y_last), cache
     def prefill_chunk(self, params, tokens, cache, counts, mask):
         """Continue prefilling in place: write ``counts[b]`` prompt tokens
         (right-padded to the chunk width C) for rows where ``mask[b]``,
@@ -169,7 +191,7 @@ class Model:
         y_last = y[torch.arange(B, device=y.device), idx]
         cache = dict(cache)
         cache["len"] = lens0 + torch.where(mask, counts, 0).to(lens0.dtype)
-        return lm_head(params["emb"], y_last), cache
+        return self._logits(params, y_last), cache
 
     def decode_step(self, params, tokens, cache, window=None):
         """One decode iteration. tokens: (B,) or (B,1). Returns
@@ -180,7 +202,7 @@ class Model:
                                              lens=cache["len"])
         y, cache, _ = self._stack(params, x, positions, cache, "decode",
                                   window=window)
-        return lm_head(params["emb"], y[:, -1]), cache
+        return self._logits(params, y[:, -1]), cache
 
     def decode_stage(self, stage_params, x_or_tokens, cache, *, first: bool,
                      last: bool, window=None):
@@ -211,5 +233,5 @@ class Model:
                                         self.cfg, cache, "decode",
                                         window=window, final_norm=last)
         if last:
-            return lm_head(stage_params["emb"], y[:, -1]), cache
+            return self._logits(stage_params, y[:, -1]), cache
         return y, cache

@@ -687,3 +687,29 @@ def test_checkpoint_round_trip_on_cuda(tmp_path):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
     for a, b in zip(tree_leaves(opt.nu), tree_leaves(gopt.nu)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,V,hot", [(2, 49152, "random"), (4, 12288, "all"),
+                                     (8, 12288, "random"),
+                                     (4, 24576, "none")])
+def test_kernels_match_plain_versions_at_rank_shapes(B, V, hot):
+    """The shapes a rank gives the kernels on a mesh of four (B = 8): S1's
+    whole rows (2, 49152) and the hierarchical plane's (B_loc, V/t)
+    blocks; the same contract as at the main shape."""
+    test_kernels_match_plain_versions(B, V, hot)
+
+
+@pytest.mark.parametrize("row0", [0, 2, 6])
+def test_gumbel_rows_from_row0_match_the_whole_batch(row0):
+    """A rank deciding rows row0..row0+1 of a batch of 8 draws those rows'
+    noise: its tokens equal the plain version's with the same ``row0``
+    and the whole batch's launch at those rows."""
+    dev = _cuda()
+    rs = np.random.default_rng(row0)
+    z = torch.from_numpy(rs.normal(0, 2, (8, 49152)).astype(np.float32)
+                         ).to(dev)
+    whole = gumbel_kernel.gumbel_argmax(z, 77)
+    part = z[row0:row0 + 2].contiguous()
+    got = gumbel_kernel.gumbel_argmax(part, 77, row0)
+    assert torch.equal(got, ref.gumbel_argmax_ref(part, 77, row0))
+    assert torch.equal(got, whole[row0:row0 + 2])
