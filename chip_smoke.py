@@ -191,10 +191,35 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    refused for CUDA tensors and that were staged through pinned host
    memory are printed. Four ranks share one card: no time here is a
    time across cards.
+12. tensor-parallel serving (``launch/steps.py``'s programs, the model
+   forward split over the model axis): (a) under a (1, 1) mesh over NCCL
+   in this process, smollm-360m's prefill program and 8 serve-step
+   programs (full width, B = 8, S1 ``shvs``, mixed rows) equal the same
+   programs without a mesh bit for bit; (b) four ranks spawned on this
+   card over gloo at (1, 4) and (2, 2) run smollm-360m at full width and
+   depth (bf16, seeded weights, each rank its blocks), B = 8, a 64-token
+   prompt and a cache of 256 (the reference's ``SHAPES`` cut): the
+   prefill program, then 8 serve-step programs fed the single-process
+   tokens (teacher-forced, so the logits stay comparable), with ``shvs``
+   and at (1, 4) also ``fused`` and ``gumbel``, so every kernel runs
+   inside a TP serve step; (c) the same at (1, 4) for granite-moe-1b-a400m
+   (8 of 24 layers), rwkv6-3b (8 of 32) and zamba2-1.2b (12 of 38, in
+   float32: seeded in bf16 its logits move by O(1) under any change of
+   rounding order, phase 9 (b)), 3 serve steps. Per rank: the max abs difference of its logits block from
+   the single-process block, greedy tokens equal where the top-two gap is
+   at least ``GAP_CLEAR``, weight bytes equal to ``param_spec``'s
+   reckoning (and the whole model's beside them), cache bytes at most
+   ``cache_shardings``', ``max_memory_allocated``, the step's median ms,
+   its collectives' count and ms (``dist.set_timing``), the decision
+   kernels' launches, and the analytic bound of the step
+   (``launch/hlo_analysis``, H100 SXM5 constants) beside it. The ranks'
+   logs go to ``chiprun_out/tp_rank*.log``. Four ranks share one card: no
+   time here is a time across cards.
 
 ``python3 chip_smoke.py --families-only`` builds the kernels and runs
 phases 3 and 9 alone, printing one JSON line. ``--train-only`` runs
-phase 10 alone the same way, and ``--dist-only`` phase 11.
+phase 10 alone the same way, ``--dist-only`` phase 11 and ``--tp-only``
+phase 12.
 
 ``python3 chip_smoke.py --host-only`` builds the kernels and runs phase 5's
 ``shvs`` rows on the device and in the host pool, in turns, and the pool
@@ -3258,6 +3283,457 @@ def dist_only(dev, card):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 12: tensor-parallel serving — launch/steps.py's programs with the
+# model forward split over the mesh's model axis
+# ---------------------------------------------------------------------------
+TP_B, TP_PROMPT, TP_CACHE = 8, 64, 256   # batch, prompt, the serve cache
+TP_STEPS = 8                             # serve steps of smollm-360m
+TP_MESHES = ((1, 4), (2, 2))
+# (arch, layers or None, meshes, algorithms, serve steps, dtype):
+# smollm-360m at full depth on both meshes, every algorithm at (1, 4); the
+# other families at (1, 4), full width, depth cut to keep the phase within
+# its time. Zamba2 runs in float32: with seeded bf16 weights its logits
+# move by O(1) under any change of rounding order (phase 9 (b): prefill(21)
+# + 3 decode against prefill(24) differ by 0.797 relative), past any gap
+# rule, as its TP forward's partial sums in another order do too
+TP_RUNS = (("smollm-360m", None, TP_MESHES, ("shvs", "fused", "gumbel"),
+            TP_STEPS, "bfloat16"),
+           ("granite-moe-1b-a400m", 8, ((1, 4),), ("shvs",), 3, "bfloat16"),
+           ("rwkv6-3b", 8, ((1, 4),), ("shvs",), 3, "bfloat16"),
+           ("zamba2-1.2b", 12, ((1, 4),), ("shvs",), 3, "float32"))
+TP_KERNELS = {"shvs": ("penalty_scale", "shvs_masses"),
+              "fused": ("fused_sample",),
+              "gumbel": ("penalty_scale", "gumbel_argmax")}
+
+
+def tp_config(arch, layers, dtype="bfloat16"):
+    import dataclasses
+    from repro_torch.config import get_arch
+    cfg = get_arch(arch)
+    assert cfg.dtype == "bfloat16", arch
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
+                               dtype=dtype)
+
+
+def tp_shapes():
+    from repro_torch.config import ShapeConfig
+    return (ShapeConfig("tp_prefill", TP_PROMPT, TP_B, "prefill"),
+            ShapeConfig("tp_decode", TP_CACHE, TP_B, "decode"))
+
+
+def pad_cache(cache, slots):
+    """A whole cache whose K/V hold ``slots`` positions: the prefill
+    program's cache (its prompt's slots) padded with empty slots for the
+    serve steps."""
+    import torch
+    out = dict(cache)
+    for k in ("k", "v"):
+        if k in out:
+            x = out[k]
+            out[k] = torch.cat([x, x.new_zeros(x.shape[:2] + (
+                slots - x.shape[2],) + x.shape[3:])], dim=2)
+    return out
+
+
+def tp_reference(dev, work):
+    """The single-process side of phase 12 (b) and (c): for each arch,
+    seeded prompts, the prefill's and ``steps`` greedy decode steps'
+    logits (whole rows, f32) and tokens of the unsplit model (prefill into
+    the prompt's slots, then decode in the cache padded to TP_CACHE, as the
+    programs run), written to ``work`` for the ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import Model
+    out = {}
+    for arch, layers, _, _, n, dtype in TP_RUNS:
+        cfg = tp_config(arch, layers, dtype)
+        model = Model(cfg)
+        params = model.init(seed=0, device=dev)
+        prompts = torch.from_numpy(np.random.default_rng(12).integers(
+            1, cfg.vocab_size, (TP_B, TP_PROMPT))).to(dev)
+        with torch.no_grad():
+            cache = model.init_cache(TP_B, TP_PROMPT, device=dev)
+            lg, cache = model.prefill(params, {"tokens": prompts}, cache)
+            cache = pad_cache(cache, TP_CACHE)
+            logits, toks = [lg], [lg.argmax(-1)]
+            for _ in range(n):
+                lg, cache = model.decode_step(params, toks[-1], cache)
+                logits.append(lg)
+                toks.append(lg.argmax(-1))
+        out[arch] = {"prompts": prompts.cpu(),
+                     "logits": torch.stack(logits).cpu(),
+                     "tokens": torch.stack(toks).cpu()}
+        del params, cache
+    torch.save(out, work / "tp_ref.pt")
+
+
+def tp_programs(cfg, mesh, algorithm, dev):
+    from repro_torch.launch import steps
+    pre_shape, dec_shape = tp_shapes()
+    pre = steps.make_prefill_program(cfg, pre_shape, mesh, device=dev)
+    dec = steps.make_serve_step_program(cfg, dec_shape, mesh,
+                                        algorithm=algorithm, device=dev)
+    return pre, dec
+
+
+def tp_one_rank(dev, card):
+    """Phase 12 (a): the prefill and 8 serve-step programs of full-width
+    smollm-360m at B = 8 under a (1, 1) NCCL mesh in this process equal
+    the same programs without a mesh bit for bit: tokens (mixed sampled
+    and greedy rows, penalties on) and the K/V cache."""
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core import penalties as pen
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import dist
+    from repro_torch.models.model import Model
+    cfg = tp_config("smollm-360m", None)
+    full = Model(cfg).init(seed=0, device=dev)
+    prompts = torch.from_numpy(np.random.default_rng(12).integers(
+        1, cfg.vocab_size, (TP_B, TP_PROMPT))).to(dev)
+    sp = dist_params("mixed", TP_B, dev)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=1, rank=0, device_id=dev)
+
+    def run(mesh):
+        pre, dec = tp_programs(cfg, mesh, "shvs", dev)
+        with dist.use_mesh(mesh, batch_axes=pre[4]), torch.no_grad():
+            zeros = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                     for k, v in pre[1][2].items()}
+            p, b, c, s_ = steps.local_inputs(
+                cfg, (full, {"tokens": prompts}, zeros, sp), pre[2], mesh)
+            tok, c = pre[0](p, b, c, s_)
+            toks = [tok]
+            st = pen.update_histograms(pen.init_state(
+                TP_B, cfg.vocab_size, prompts), tok)
+            _, c, st, tok, s_, _ = steps.local_inputs(
+                cfg, (None, pad_cache(c, TP_CACHE), st, tok, sp, 0), dec[2],
+                mesh)
+            for i in range(TP_STEPS):
+                tok, c, st = dec[0](p, c, st, tok, s_, i + 1)
+                toks.append(tok)
+            sync(dev)
+        return torch.stack(toks), c
+    try:
+        want, c_want = run(None)
+        got, c_got = run(make_local_mesh(1, 1))
+    finally:
+        tdist.destroy_process_group()
+    assert torch.equal(got, want), (got.tolist(), want.tolist())
+    assert torch.equal(c_got["k"], c_want["k"]) and \
+        torch.equal(c_got["v"], c_want["v"])
+    print(f"phase 12 (a) (1, 1) NCCL mesh: smollm-360m's prefill and "
+          f"{TP_STEPS} serve-step programs (S1 shvs, mixed rows) equal the "
+          f"programs without a mesh bit for bit: {TP_STEPS + 1} tokens a "
+          f"row and the K/V cache [{card}]")
+    return {"tokens_equal": True, "cache_equal": True,
+            "tokens": got.tolist()}
+
+
+def tp_four_ranks(dev, work):
+    """Phase 12 (b), (c): four ranks spawned on this card over gloo; the
+    kernel library is already built, so they only load it."""
+    import os
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env["OMP_NUM_THREADS"] = "2"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", str(r),
+         "--dist-world", "4", "--dist-port", str(port), "--dist-dir",
+         str(work), "--dist-device", str(dev)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logdir = ROOT / "chiprun_out"
+    logdir.mkdir(exist_ok=True)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        (logdir / f"tp_rank{r}.log").write_text(log)
+        if p.returncode != 0:
+            print(log[-6000:])
+        assert p.returncode == 0, f"rank {r} exited with {p.returncode}"
+    return json.loads((work / "tp_ranks.json").read_text())
+
+
+def tp_bound(cfg, t):
+    """The analytic bound of one serve step (``launch/hlo_analysis``, H100
+    SXM5 constants): (ms with a card a rank, ms of the four ranks' work
+    on one card, the collective term over NVLink in ms)."""
+    from repro_torch.launch import hlo_analysis as ha
+    shape = tp_shapes()[1]
+    byts = ha.analytic_memory_bytes(cfg, shape)
+    flops = ha.model_flops_estimate(cfg, shape)
+    per = ha.Roofline("tp", t, flops, byts, 0.0, flops)
+    one = ha.Roofline("tp", 1, flops, byts, 0.0, flops)
+    return (1e3 * max(per.compute_s, per.memory_s),
+            1e3 * max(one.compute_s, one.memory_s))
+
+
+def tp_rank_main(args):
+    """One of phase 12's four ranks: each run of TP_RUNS on its meshes,
+    the prefill program and teacher-forced serve-step programs (the
+    single-process tokens as inputs, so the logits stay comparable);
+    rank 0 writes ``tp_ranks.json``."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core import penalties as pen
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hlo_analysis as ha
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import dist
+    from repro_torch.models.model import Model
+    work = Path(args.dist_dir)
+    dev = torch.device(args.dist_device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rank = args.tp_rank
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                             f"{args.dist_port}", world_size=args.dist_world,
+                             rank=rank)
+    ref = torch.load(work / "tp_ref.pt")
+    greedy = dist_params("greedy", TP_B, dev)
+    out = {}
+
+    def rows_clone(cache, B):
+        r0, n = dist.rows(B, dist.get_ctx().batch_axes)
+        c = {k: v.clone() for k, v in cache.items()}
+        if c["len"].shape[0] != n:
+            c["len"] = c["len"][r0:r0 + n]
+        return c
+
+    def whole(cache, specs):
+        for k, spec in specs.items():
+            for d, e in enumerate(spec):
+                if e is not None:
+                    cache[k] = dist.all_gather(cache[k], e, dim=d, tiled=True)
+        return cache
+
+    for arch, layers, meshes, algos, n_steps, dtype in TP_RUNS:
+        cfg = tp_config(arch, layers, dtype)
+        model = Model(cfg)
+        R = ref[arch]
+        prompts, want_l, want_t = (R["prompts"].to(dev), R["logits"],
+                                   R["tokens"])
+        full = model.init(seed=0, device=dev)
+        for shape in meshes:
+            mesh = make_local_mesh(*shape)
+            t = shape[1]
+            for algo in algos:
+                tag = f"{arch}_{shape[0]}x{shape[1]}_{algo}"
+                pre, dec = tp_programs(cfg, mesh, algo, dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                with dist.use_mesh(mesh, batch_axes=pre[4]), \
+                        torch.no_grad():
+                    r0, n = dist.rows(TP_B, ("data",))
+                    V = cfg.vocab_size
+                    cols = V // t if V % t == 0 else V
+                    c0 = dist.axis_index("model") * cols if cols != V else 0
+                    zeros = {k: torch.zeros(v.shape, dtype=v.dtype,
+                                            device=dev)
+                             for k, v in pre[1][2].items()}
+                    p, b, c, s_ = steps.local_inputs(
+                        cfg, (full, {"tokens": prompts}, zeros, greedy),
+                        pre[2], mesh)
+                    lg, _ = model.prefill(p, b, rows_clone(c, TP_B))
+                    errs = [float((lg.float().cpu() - want_l[0][
+                        r0:r0 + n, c0:c0 + cols]).abs().max())]
+                    finite = bool(torch.isfinite(lg).all())
+                    tok, c = pre[0](p, b, c, s_)
+                    diffs = []
+
+                    def held(got, s):
+                        w = want_t[s][r0:r0 + n]
+                        for i in (got.cpu() != w).nonzero().flatten().tolist():
+                            top = want_l[s][r0 + i].topk(2).values
+                            diffs.append({"step": s, "row": r0 + i, "gap":
+                                          float(top[0] - top[1])})
+                    held(tok, 0)
+                    st = pen.update_histograms(pen.init_state(
+                        TP_B, V, prompts), want_t[0].to(dev))
+                    _, c, st, _, s_, _ = steps.local_inputs(
+                        cfg, (None, pad_cache(whole(c, pre[2][2]), TP_CACHE),
+                              st, None, greedy, 0), dec[2], mesh)
+                    w_held = sharding.held_bytes(p)
+                    w_spec = sharding.rank_bytes(dec[1][0], dec[2][0], mesh)
+                    w_whole = sharding.held_bytes(full)
+                    c_held = sharding.held_bytes(c)
+                    c_spec = sharding.rank_bytes(dec[1][1], dec[2][1], mesh)
+                    ms, coll_ms, calls, launches = [], [], {}, {}
+                    ops.reset_launch_counts()
+                    for s in range(n_steps):
+                        tok_in = want_t[s][r0:r0 + n].to(dev)
+                        before = rows_clone(c, TP_B)
+                        sync(dev)
+                        dist.reset_collective_stats()
+                        dist.set_timing(True)
+                        t0 = time.perf_counter()
+                        tok, c, st = dec[0](p, c, st, tok_in, s_, s + 1)
+                        sync(dev)
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                        dist.set_timing(False)
+                        cs = dist.collective_stats()
+                        coll_ms.append(1e3 * sum(v["seconds"]
+                                                 for v in cs.values()))
+                        for k, v in cs.items():
+                            acc = calls.setdefault(k, {"calls": 0,
+                                                       "bytes": 0})
+                            acc["calls"] += v["calls"]
+                            acc["bytes"] += v["bytes"]
+                        held(tok, s + 1)
+                        lg, _ = model.decode_step(p, tok_in, before)
+                        errs.append(float((lg.float().cpu() - want_l[s + 1][
+                            r0:r0 + n, c0:c0 + cols]).abs().max()))
+                        finite &= bool(torch.isfinite(lg).all())
+                    launches = ops.launch_counts()
+                    # bytes a rank would receive over NVLink, each
+                    # collective counted over a group of t (the model
+                    # axis'; the (2, 2) mesh's batch gathers are smaller)
+                    cstats = ha.collective_stats_from(
+                        calls, {k: t for k in calls})
+                    bound_rank, bound_card = tp_bound(cfg, t)
+                    med = sorted(ms)[len(ms) // 2]
+                    rec = {
+                        "ok": finite and all(d["gap"] < GAP_CLEAR
+                                             for d in diffs) and all(
+                            launches.get(k, 0) > 0 for k in TP_KERNELS[algo]),
+                        "logits_block": list(lg.shape),
+                        "max_abs_err": max(errs), "token_diffs": diffs,
+                        "weight_bytes": w_held, "weight_bytes_spec": w_spec,
+                        "weight_bytes_whole": w_whole,
+                        "cache_bytes": c_held, "cache_bytes_spec": c_spec,
+                        "max_memory_allocated": torch.cuda.max_memory_allocated(
+                            dev),
+                        "step_ms": ms, "step_ms_median": med,
+                        "collective_ms_median": sorted(coll_ms)[
+                            len(coll_ms) // 2],
+                        "collective_calls_a_step": {
+                            k: v["calls"] / n_steps for k, v in calls.items()},
+                        "collectives_a_step": sum(
+                            v["calls"] for v in calls.values()) / n_steps,
+                        "collective_bytes_a_step": cstats.total_bytes /
+                        n_steps,
+                        "nvlink_ms_reckoned": 1e3 * cstats.total_bytes /
+                        n_steps / ha.NVLINK_BW,
+                        "launches": launches,
+                        "bound_ms_card_a_rank": bound_rank,
+                        "bound_ms_one_card": bound_card}
+                out[tag] = {rank: rec}
+                print(f"{tag}: logits block {rec['logits_block']}, max abs "
+                      f"err {rec['max_abs_err']:.4g}, token diffs {diffs}, "
+                      f"weights {w_held} B (spec {w_spec}, whole {w_whole}), "
+                      f"cache {c_held} B (spec {c_spec}), peak "
+                      f"{rec['max_memory_allocated']} B, step "
+                      f"{med:.1f} ms, collectives "
+                      f"{rec['collectives_a_step']:.0f} a step in "
+                      f"{rec['collective_ms_median']:.1f} ms, launches "
+                      f"{launches}, ok {rec['ok']}", flush=True)
+        del full
+        torch.cuda.empty_cache()
+    out["staged"] = list(dist.staged_collectives())
+    gathered = [None] * args.dist_world
+    tdist.all_gather_object(gathered, out)
+    if rank == 0:
+        merged = {"staged": sorted({s for o in gathered for s in o["staged"]})}
+        for o in gathered:
+            for tag, per in o.items():
+                if tag != "staged":
+                    merged.setdefault(tag, {}).update(
+                        {str(k): v for k, v in per.items()})
+        (work / "tp_ranks.json").write_text(json.dumps(merged))
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def tp_phase(dev, card):
+    """Phase 12: (a) the one-rank NCCL mesh; (b), (c) the four gloo ranks
+    on this card, each rank's blocks held to the single-process model."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"one_rank_nccl": tp_one_rank(dev, card)}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    try:
+        tp_reference(dev, work)
+        ranks = tp_four_ranks(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for arch, layers, meshes, algos, n_steps, dtype in TP_RUNS:
+        for shape in meshes:
+            for algo in algos:
+                tag = f"{arch}_{shape[0]}x{shape[1]}_{algo}"
+                per = ranks[tag]
+                assert len(per) == 4, (tag, sorted(per))
+                for r, rec in sorted(per.items()):
+                    assert rec["ok"], (tag, r, rec)
+                    assert rec["weight_bytes"] == rec["weight_bytes_spec"], \
+                        (tag, r)
+                    assert rec["cache_bytes"] <= rec["cache_bytes_spec"], \
+                        (tag, r)
+                r0 = per["0"]
+                depth = f"{layers} of {tp_config(arch, None).num_layers} " \
+                    "layers" if layers else "full depth"
+                print(
+                    f"phase 12 ({'b' if arch == 'smollm-360m' else 'c'}) "
+                    f"{tag} ({depth}, {dtype}, B = {TP_B}, prompt "
+                    f"{TP_PROMPT}, cache "
+                    f"{TP_CACHE}, {n_steps} serve steps): per rank max abs "
+                    f"logits err "
+                    f"{[round(per[str(r)]['max_abs_err'], 4) for r in range(4)]}"
+                    f", greedy tokens equal but for "
+                    f"{sum(len(per[str(r)]['token_diffs']) for r in range(4))}"
+                    f" (rank, step, row) places, each under the gap "
+                    f"{GAP_CLEAR}; weight bytes a rank "
+                    f"{[per[str(r)]['weight_bytes'] for r in range(4)]} = the "
+                    f"spec's (whole {r0['weight_bytes_whole']}), cache bytes "
+                    f"{[per[str(r)]['cache_bytes'] for r in range(4)]} <= the "
+                    f"spec's {r0['cache_bytes_spec']}; max memory allocated "
+                    f"{[per[str(r)]['max_memory_allocated'] for r in range(4)]}"
+                    f" B; step median "
+                    f"{[round(per[str(r)]['step_ms_median'], 1) for r in range(4)]}"
+                    f" ms, of it collectives "
+                    f"{[round(per[str(r)]['collective_ms_median'], 1) for r in range(4)]}"
+                    f" ms, {r0['collectives_a_step']:.0f} collectives a step "
+                    f"{r0['collective_calls_a_step']}; launches a rank "
+                    f"{[per[str(r)]['launches'] for r in range(4)]}; analytic "
+                    f"bound (hlo_analysis, H100 SXM5 constants) "
+                    f"{r0['bound_ms_card_a_rank']:.4f} ms with a card a rank, "
+                    f"{r0['bound_ms_one_card']:.4f} ms for the four ranks' "
+                    f"work on this one card; the collectives' "
+                    f"{r0['collective_bytes_a_step']:.0f} B a rank a step "
+                    f"would take {r0['nvlink_ms_reckoned']:.4f} ms at "
+                    f"NVLink's rate (reckoned, not measured) [{card}]")
+    out["four_ranks"] = ranks
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
+def tp_only(dev, card):
+    """``--tp-only``: phase 12 alone; prints one JSON line."""
+    print(json.dumps({"tp_only": {"card": card, "runs": tp_phase(dev, card)}}))
+    return 0
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3476,7 +3952,14 @@ def main() -> int:
                          "distributed planes and the EP MoE: a one-rank "
                          "NCCL mesh, four gloo ranks on this card) only; "
                          "prints one JSON line")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build the kernels and run phase 12 (tensor-"
+                         "parallel serving: launch/steps.py's programs on a "
+                         "one-rank NCCL mesh and four gloo ranks on this "
+                         "card) only; prints one JSON line")
     ap.add_argument("--dist-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-world", type=int, default=4,
                     help=argparse.SUPPRESS)
@@ -3503,6 +3986,8 @@ def main() -> int:
         return 1
     if args.dist_rank is not None:          # one of phase 11's ranks
         return dist_rank_main(args)
+    if args.tp_rank is not None:            # one of phase 12's ranks
+        return tp_rank_main(args)
     from repro_torch.kernels import _build, fused_kernel, gumbel_kernel, \
         ops, penalty_kernel, shvs_kernel
     dev = torch.device("cuda", 0)
@@ -3552,6 +4037,8 @@ def main() -> int:
         return train_only(dev, card)
     if args.dist_only:
         return dist_only(dev, card)
+    if args.tp_only:
+        return tp_only(dev, card)
 
     t_phase = time.perf_counter()
 
@@ -3582,6 +4069,7 @@ def main() -> int:
     train_runs = train_phase(dev, card)
     phase_done(10)
     dist_runs = dist_phase(dev, card)          # prints its own seconds
+    tp_runs = tp_phase(dev, card)              # prints its own seconds
 
     launch_of = {"penalty_scale": counts["shvs"]["penalty_scale"],
                  "shvs_masses": counts["shvs"]["shvs_masses"],
@@ -3608,6 +4096,7 @@ def main() -> int:
               "pipeline": pipeline_runs, "migration": migration_runs,
               "families": family_runs, "family_launches": family_counts,
               "training": train_runs, "distribution": dist_runs,
+              "tensor_parallel": tp_runs,
               "fused_large_k": large_k,
               "gumbel_sass": sass,
               "gumbel_issue_floor": floor}

@@ -81,6 +81,24 @@ def update_histograms(state: PenaltyState, new_tokens: torch.Tensor,
     return state._replace(output_counts=co)
 
 
+def apply_penalties(logits: torch.Tensor, state: PenaltyState,
+                    cfg) -> torch.Tensor:
+    """Eq. 1 / §2.2 on (B, V) logits under one ``SamplingConfig`` for
+    every row. Returns penalized logits (f32)."""
+    z = logits.float()
+    if cfg.repetition_penalty != 1.0:
+        seen = state.prompt_mask | state.output_mask
+        f = 1.0 + (cfg.repetition_penalty - 1.0) * seen.float()
+        # paper form Z/f for positive logits; standard extension multiplies
+        # negative logits so the penalty always reduces probability
+        z = torch.where(z > 0, z / f, z * f)
+    if cfg.presence_penalty != 0.0:
+        z = z - cfg.presence_penalty * state.output_mask.float()
+    if cfg.frequency_penalty != 0.0:
+        z = z - cfg.frequency_penalty * state.output_counts.float()
+    return z
+
+
 def apply_penalties_rows(logits: torch.Tensor, state: PenaltyState,
                          repetition: torch.Tensor, presence: torch.Tensor,
                          frequency: torch.Tensor) -> torch.Tensor:

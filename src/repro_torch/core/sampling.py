@@ -45,6 +45,28 @@ class SamplingParams(NamedTuple):
     seed: Optional[np.ndarray] = None       # uint32; per-request RNG seed
     use_seed: Optional[np.ndarray] = None   # bool; row draws its own stream
 
+    @staticmethod
+    def broadcast(batch: int, cfg, device="cpu") -> "SamplingParams":
+        """One ``SamplingConfig`` for every one of ``batch`` rows: the core
+        fields as (B,) tensors on ``device``, the RNG tags as host arrays
+        (``seed_u32`` and ``seeded``, the engine's normalisation)."""
+        f = lambda v: torch.full((batch,), v, dtype=torch.float32,
+                                 device=device)
+        temperature = getattr(cfg, "effective_temperature", cfg.temperature)
+        seeded = bool(getattr(cfg, "seeded", False))
+        return SamplingParams(
+            temperature=f(temperature),
+            top_k=torch.full((batch,), cfg.top_k, dtype=torch.int32,
+                             device=device),
+            top_p=f(cfg.top_p),
+            min_p=f(cfg.min_p),
+            repetition_penalty=f(cfg.repetition_penalty),
+            presence_penalty=f(cfg.presence_penalty),
+            frequency_penalty=f(cfg.frequency_penalty),
+            seed=np.full((batch,), getattr(cfg, "seed_u32", 0), np.uint32),
+            use_seed=np.full((batch,), seeded, bool),
+        )
+
     def strip_rng(self) -> "SamplingParams":
         """Drop the RNG-tag fields (already consumed by the uniform draw)."""
         return self._replace(seed=None, use_seed=None)
@@ -107,6 +129,14 @@ def sample_reference(z: torch.Tensor, params: SamplingParams,
     greedy = z.argmax(-1)
     return torch.where(params.temperature <= 0.0, greedy,
                        tokens).to(torch.int32)
+
+
+def masked_probs_reference(z: torch.Tensor, params: SamplingParams
+                           ) -> torch.Tensor:
+    """The target distribution p̃ (B, V) — used by TVD/exactness tests."""
+    z = temperature_scale(z, params.temperature)
+    mask = filter_mask_reference(z, params)
+    return torch.softmax(torch.where(mask, z, NEG_INF), -1)
 
 
 # ---------------------------------------------------------------------------

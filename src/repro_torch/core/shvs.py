@@ -35,6 +35,10 @@ class HotSet(NamedTuple):
     indices: torch.Tensor   # (H,) int64 — token ids in the hot set
     mask: torch.Tensor      # (V,) bool  — membership mask
 
+    @property
+    def size(self) -> int:
+        return self.indices.shape[0]
+
 
 def make_hot_set(indices, vocab_size: int, device="cpu") -> HotSet:
     indices = torch.as_tensor(indices, dtype=torch.int64, device=device)

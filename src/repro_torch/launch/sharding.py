@@ -20,10 +20,12 @@ Conventions (the reference's DESIGN.md §6):
   head/state dim instead.
 
 Every rule degrades to replication when the dim is not divisible by the
-axis size, so the same rules serve reduced configs. The port realises
-only the expert blocks of a parameter tree (:func:`shard_tree` with
-:func:`is_expert_leaf`): the dense stack's tensor parallelism is not
-ported, and its weights stay whole on every rank.
+axis size, so the same rules serve reduced configs. :func:`shard_tree`
+cuts every leaf of a parameter tree to the block its spec gives the rank
+with ``keep=every_leaf`` (the forward of ``models/`` reads split-or-whole
+from each leaf's shape); its default, ``keep=is_expert_leaf``, cuts only
+the routed experts, the dense weights staying whole. :func:`local_tree` cuts any tree by a tree of specs, and
+:func:`rank_bytes` reckons the bytes a rank holds under one.
 """
 from __future__ import annotations
 
@@ -311,11 +313,18 @@ def local_shard(tensor: torch.Tensor, spec: Spec, mesh, coords=None):
     return out
 
 
+def every_leaf(path: str) -> bool:
+    return True
+
+
 def shard_tree(params, mesh, cfg: ModelConfig, coords=None,
                keep: Callable[[str], bool] = is_expert_leaf):
     """The rank's blocks of a parameter tree: leaves whose path passes
     ``keep`` are cut by :func:`param_spec` (contiguous copies, so the
-    full tensors can be dropped), the others stay whole."""
+    full tensors can be dropped), the others stay whole. The default cuts
+    the routed experts only (the expert-parallel MoE under replicated
+    dense weights); ``keep=every_leaf`` cuts every leaf, the layout of the
+    tensor-parallel forward."""
     def f(path, leaf):
         if not keep(path):
             return leaf
@@ -323,3 +332,64 @@ def shard_tree(params, mesh, cfg: ModelConfig, coords=None,
         return local_shard(leaf, spec, mesh, coords).contiguous()
 
     return _walk(params, "", f)
+
+
+def _pairs(tree, specs):
+    """(leaf, spec) of every leaf of ``tree`` with the spec at the same
+    place of the matching tree ``specs``: dicts by key, NamedTuples by
+    field, lists and tuples by position; a spec is a plain tuple."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _pairs(v, specs[k])
+    elif isinstance(tree, (list, tuple)):
+        for v, sp in zip(tree, specs):
+            yield from _pairs(v, sp)
+    else:
+        yield tree, specs
+
+
+def local_tree(tree, specs, mesh, coords=None):
+    """Every tensor of ``tree`` cut to the block its spec at the same
+    place of the matching tree ``specs`` gives the rank at ``coords``
+    (contiguous copies); other leaves (None, numbers) pass through."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v, specs[k], mesh, coords)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(local_tree(v, sp, mesh, coords)
+                            for v, sp in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(local_tree(v, sp, mesh, coords)
+                          for v, sp in zip(tree, specs))
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return local_shard(tree, specs, mesh, coords).contiguous()
+
+
+def spec_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's block of a leaf of ``shape`` under ``spec``."""
+    return tuple(n // _axis_size(mesh, e) for n, e in
+                 zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+
+
+def rank_bytes(tree, specs, mesh) -> int:
+    """Bytes a rank holds of ``tree`` (leaves with ``shape`` and
+    ``dtype``: tensors, meta tensors) under the matching tree of
+    ``specs``: each leaf's block by :func:`spec_shape`."""
+    total = 0
+    for leaf, spec in _pairs(tree, specs):
+        if leaf is None:
+            continue
+        n = 1
+        for d in spec_shape(tuple(leaf.shape), spec, mesh):
+            n *= d
+        total += n * torch.empty((), dtype=leaf.dtype).element_size()
+    return total
+
+
+def held_bytes(tree) -> int:
+    """Bytes the tensors of a tree hold."""
+    out = []
+    _tree_map(lambda _, leaf: out.append(leaf), tree)
+    return sum(t.numel() * t.element_size() for t in out
+               if isinstance(t, torch.Tensor))

@@ -1,1 +1,3 @@
-"""Dense decoder forward over a contiguous KV cache."""
+"""Model substrate: all six architecture families in PyTorch, with the
+tensor-parallel forward of a mesh's model axes (``models/dist.py``)."""
+from repro_torch.models.model import Model  # noqa: F401

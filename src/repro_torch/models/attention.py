@@ -13,6 +13,18 @@ weighted sum accumulate in float32), not as a fused library attention.
 * ``attend_chunk_cached`` — C prompt tokens per row at per-row offsets
   against the cache (chunked prefill).
 
+Under a mesh (``models/dist.py``) the projections are column-parallel:
+``w_q``/``w_k``/``w_v`` blocks give the rank's columns, which one
+all-gather over the model axes makes whole heads again (a block may end in
+the middle of a head: smollm's 15 heads of 64 at t = 4); qk-norm and RoPE
+run on whole heads. ``w_o`` is row-parallel on the rank's columns of the
+attention output, with one ``psum``. The cache's sequence dimension is
+split over the model axes (``launch/sharding.cache_shardings``): a decode
+step attends over the rank's slots and the ranks' partial softmaxes merge
+(:func:`attend_decode_block`); prefill attends over the prompt's own K/V,
+which the gather leaves whole on every rank, and each rank writes only its
+slots.
+
 KV caches are per-layer ``(B, S_cache, kv_heads, head_dim)``. A paged
 cache keeps K/V in a block pool instead; attention runs over a gathered
 contiguous view of it (``gather_block_view``), so pages change where K/V
@@ -26,8 +38,9 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import dist
 from repro_torch.models.layers import (apply_rope, dense_init, matmul,
-                                      rms_norm, torch_dtype)
+                                      rms_norm, row_parallel, torch_dtype)
 
 NEG_INF = -1e30
 
@@ -58,9 +71,12 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, rope_tables=None,
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     B, S = x.shape[0], x.shape[1]
-    q = matmul(x, params["w_q"]).reshape(B, S, nh, hd)
-    k = matmul(x, params["w_k"]).reshape(B, S, nkv, hd)
-    v = matmul(x, params["w_v"]).reshape(B, S, nkv, hd)
+    q, k, v = _whole_cols(
+        [matmul(x, params[w]) for w in ("w_q", "w_k", "w_v")],
+        [nh * hd, nkv * hd, nkv * hd])
+    q = q.reshape(B, S, nh, hd)
+    k = k.reshape(B, S, nkv, hd)
+    v = v.reshape(B, S, nkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.rmsnorm_eps)
         k = rms_norm(k, params["k_norm"], cfg.rmsnorm_eps)
@@ -68,6 +84,28 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, rope_tables=None,
         q = apply_rope(q, positions, cfg.rope_theta, rope_tables)
         k = apply_rope(k, positions, cfg.rope_theta, rope_tables)
     return q, k, v
+
+
+def _whole_cols(outs, widths):
+    """Column-parallel products made whole: the outputs whose width is a
+    block of ``widths`` are gathered over the model axes in one call."""
+    split = [i for i, (o, w) in enumerate(zip(outs, widths))
+             if dist.split_block(o.shape[-1], w)]
+    if split:
+        whole = dist.gather_cols([outs[i] for i in split])
+        outs = list(outs)
+        for i, o in zip(split, whole):
+            outs[i] = o
+    return outs
+
+
+def _out_proj(out, w_o, dtype):
+    """``out @ w_o`` rounded to ``dtype``; ``out`` is whole, and a block
+    of ``w_o``'s rows makes it row-parallel on the rank's columns."""
+    n = w_o.shape[-2]
+    if dist.split_block(n, out.shape[-1]):
+        return row_parallel(dist.model_block(out, -1, n), w_o, dtype)
+    return torch.matmul(out, w_o).to(dtype)
 
 
 def _expand_gqa(q, nkv: int):
@@ -187,6 +225,44 @@ def attend_decode(q, cache_k, cache_v, kv_len, *, window: int = 0,
     return out[:, None].to(cache_v.dtype)  # (B, 1, nkv, g, hd)
 
 
+def attend_decode_block(q, k_blk, v_blk, valid):
+    """Single-token attention over the rank's block of the keys, merged
+    across the model group: each rank's partial softmax — its running max
+    m, sum l and weighted values — is all-gathered in one call, and every
+    rank merges the t partials in rank order (so all hold the same
+    result). q: (B, 1, nkv, g, hd); k_blk/v_blk: (B, n, nkv, hd); valid:
+    (B, n) the keys that take part. A rank whose block holds no valid key
+    gives m = -1e30 (masked scores are finite), l = 0 and no values, and
+    weighs exp(-1e30 - M) = 0 in the merge. Returns (B, 1, nkv, g, hd)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bngh,bknh->bngk", q[:, 0].float(),
+                     k_blk.float()) * scale
+    mask = valid[:, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bngk,bknh->bngh", p, v_blk.float())
+    part = torch.cat([m[..., None], p.sum(-1)[..., None], acc], -1)
+    parts = dist.all_gather(part, dist.get_ctx().model_axes, dim=0)
+    w = torch.exp(parts[..., 0] - parts[..., 0].amax(0))      # (t, B, n, g)
+    l = (parts[..., 1] * w).sum(0)
+    acc = (parts[..., 2:] * w[..., None]).sum(0)
+    return (acc / l[..., None])[:, None].to(v_blk.dtype)
+
+
+def decode_valid(kv_len, n: int, lo: int, S: int, *, window: int = 0,
+                 ring: bool = False):
+    """(B, n) the valid slots lo..lo+n-1 of a cache of S slots, by
+    :func:`attend_decode`'s rule."""
+    kj = lo + torch.arange(n, device=kv_len.device)[None, :]
+    if ring:
+        return kj < torch.clamp(kv_len, max=S)[:, None]
+    valid = kj < kv_len[:, None]
+    if window:
+        valid &= kj >= (kv_len[:, None] - window)
+    return valid
+
+
 def attend_chunk_cached(q, cache_k, cache_v, offsets):
     """Continue-prefill attention: C query tokens per row at per-row offsets
     against the (already written) KV cache.
@@ -281,7 +357,8 @@ def attend_paged(q, k_pool_layer, v_pool_layer, block_table, kv_len,
 def attention_block(params, x, cfg: ModelConfig, positions, *,
                     cache_k=None, cache_v=None, kv_len=None,
                     mode: str = "train", window: Optional[int] = None,
-                    qkv=None, rope_tables=None, chunk_threshold: int = 4096):
+                    qkv=None, rope_tables=None, chunk_threshold: int = 4096,
+                    kv_span=None):
     """Self-attention for train/prefill ("train"), decode and "chunk"
     (chunked prefill; ``kv_len`` carries the rows' offsets before the
     chunk). Train/prefill attends with :func:`attend_chunked` from
@@ -290,8 +367,10 @@ def attention_block(params, x, cfg: ModelConfig, positions, *,
     In decode and chunk mode the cache must already hold this step's K/V;
     ``qkv``
     passes the projections the caller computed to write it, so they are
-    not recomputed. Returns (out, new_k, new_v): new_k/new_v are this
-    call's K/V entries (B, Sq, nkv, hd).
+    not recomputed. ``kv_span`` = (lo, S): the cache holds this rank's
+    slots lo.. of a cache of S slots split over the model axes (decode
+    only); None: the whole cache. Returns (out, new_k, new_v):
+    new_k/new_v are this call's K/V entries (B, Sq, nkv, hd).
     """
     window = cfg.sliding_window if window is None else window
     nkv = cfg.num_kv_heads
@@ -299,7 +378,13 @@ def attention_block(params, x, cfg: ModelConfig, positions, *,
     q, k, v = qkv if qkv is not None else _project_qkv(
         params, x, cfg, positions, rope_tables)
     qg = _expand_gqa(q, nkv)
-    if mode == "decode":
+    if mode == "decode" and kv_span is not None:
+        assert Sq == 1
+        lo, S = kv_span
+        valid = decode_valid(kv_len, cache_k.shape[1], lo, S, window=window,
+                             ring=bool(window))
+        out = attend_decode_block(qg, cache_k, cache_v, valid)
+    elif mode == "decode":
         assert Sq == 1
         out = attend_decode(qg, cache_k, cache_v, kv_len,
                             window=window, ring=bool(window))
@@ -311,28 +396,36 @@ def attention_block(params, x, cfg: ModelConfig, positions, *,
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
     out = out.reshape(B, Sq, cfg.num_heads * cfg.resolved_head_dim)
-    out = torch.matmul(out, params["w_o"]).to(x.dtype)
-    return out, k, v
+    return _out_proj(out, params["w_o"], x.dtype), k, v
 
 
 def cross_attention_block(params, x, enc_kv, cfg: ModelConfig):
     """Cross-attention of the decoder (whisper) over the encoder's output:
     ``enc_kv`` = (k, v) from :func:`project_enc_kv`, each (B, S_enc, nkv,
-    hd); every query sees every frame."""
+    hd); every query sees every frame. Under a mesh ``enc_kv`` may be the
+    rank's block of the frames (the decode cache's): one query then
+    attends over it and the ranks' partials merge."""
     B, Sq, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = matmul(x, params["w_q"]).reshape(B, Sq, cfg.num_heads, hd)
+    q, = _whole_cols([matmul(x, params["w_q"])], [cfg.num_heads * hd])
+    q = _expand_gqa(q.reshape(B, Sq, cfg.num_heads, hd), cfg.num_kv_heads)
     k, v = enc_kv
-    out = attend_full(_expand_gqa(q, cfg.num_kv_heads), k, v, causal=False,
-                      window=0)
+    if dist.split_block(k.shape[1], cfg.encoder.num_frames):
+        assert Sq == 1, "a block of the frames serves one decode query"
+        valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+        out = attend_decode_block(q, k, v, valid)
+    else:
+        out = attend_full(q, k, v, causal=False, window=0)
     out = out.reshape(B, Sq, cfg.num_heads * hd)
-    return matmul(out, params["w_o"])
+    return _out_proj(out, params["w_o"], x.dtype)
 
 
 def project_enc_kv(params, enc_out, cfg: ModelConfig):
     """The encoder output (B, S, d) projected to the decoder's cross
-    K/V, each (B, S, nkv, hd)."""
+    K/V, each (B, S, nkv, hd) (whole heads under a mesh too)."""
     B, S, _ = enc_out.shape
+    w = cfg.num_kv_heads * cfg.resolved_head_dim
     shape = (B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return (matmul(enc_out, params["w_k"]).reshape(shape),
-            matmul(enc_out, params["w_v"]).reshape(shape))
+    k, v = _whole_cols([matmul(enc_out, params["w_k"]),
+                        matmul(enc_out, params["w_v"])], [w, w])
+    return k.reshape(shape), v.reshape(shape)

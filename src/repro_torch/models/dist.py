@@ -17,6 +17,17 @@ group of those mesh dimensions, ranked in mesh order (the order the
 reference's collectives and its linear axis index use). Without a mesh,
 every wrapper is the identity (a group of one).
 
+Tensor parallelism. Under a mesh whose model axes have size t > 1 a rank
+holds the blocks ``launch/sharding.param_spec`` gives it, and the forward
+reads from each leaf's own shape whether it is split: a leaf whose
+dimension is t times smaller than the config's is the rank's block
+(:func:`split_block`), an equal one is whole (``_fit`` kept it so, where t
+does not divide the dimension). :func:`tp_size`, :func:`tp_rank`,
+:func:`gather_model`, :func:`gather_cols` and :func:`psum_model` are the
+model-axes collectives of the Megatron forward (``models/layers.py``,
+``models/attention.py``); each counts in :func:`collective_stats` as the
+wrapper it calls.
+
 The launcher installs the mesh and the logical axis assignment with
 :func:`set_mesh` / :func:`use_mesh`; model code reads it with
 :func:`get_ctx`, as in the reference.
@@ -356,3 +367,66 @@ def all_to_all(x: torch.Tensor, axes, split_dim: int, concat_dim: int):
     shape[split_dim] = c
     shape[concat_dim] *= n
     return z.permute(*order).reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model axes
+# ---------------------------------------------------------------------------
+
+
+def tp_size() -> int:
+    """The model axes' size t (1 without a mesh)."""
+    ctx = get_ctx()
+    return ctx.axis_size(ctx.model_axes) if ctx.active else 1
+
+
+def tp_rank() -> int:
+    """This rank's index over the model axes (0 without a mesh)."""
+    ctx = get_ctx()
+    return axis_index(ctx.model_axes) if ctx.active else 0
+
+
+def split_block(local: int, whole: int) -> bool:
+    """Whether a leaf's dimension of ``local`` entries is this rank's block
+    of a dimension of ``whole`` split over the model axes (False where the
+    leaf is whole)."""
+    if local == whole:
+        return False
+    t = tp_size()
+    if t <= 1 or local * t != whole:
+        raise ValueError(f"a dimension of {local} is neither whole ({whole}) "
+                         f"nor a block of it over {t} model ranks")
+    return True
+
+
+def model_block(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """This rank's block of ``n`` entries of ``x`` along ``dim``."""
+    return x.narrow(dim, tp_rank() * n, n)
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's blocks of ``x`` concatenated along ``dim``."""
+    return all_gather(x, get_ctx().model_axes, dim=dim, tiled=True)
+
+
+def psum_model(x: torch.Tensor) -> torch.Tensor:
+    return psum(x, get_ctx().model_axes)
+
+
+def gather_cols(parts):
+    """Each of ``parts`` (tensors of one leading shape, the rank's block of
+    columns of each) made whole along the last dimension, with ONE
+    all-gather over the model axes: the blocks are packed side by side,
+    gathered stacked, and unpacked in rank order."""
+    if len(parts) == 1:
+        return [gather_model(parts[0], parts[0].dim() - 1)]
+    widths = [p.shape[-1] for p in parts]
+    dt = torch.promote_types(parts[0].dtype, parts[-1].dtype)
+    packed = torch.cat([p.to(dt) for p in parts], dim=-1)
+    out = all_gather(packed, get_ctx().model_axes, dim=0)   # (t, ..., W)
+    whole, off = [], 0
+    for p, w in zip(parts, widths):
+        blk = out[..., off:off + w].movedim(0, -2)           # (..., t, w)
+        whole.append(blk.reshape(*p.shape[:-1], -1).to(p.dtype))
+        off += w
+    return whole

@@ -5,6 +5,13 @@ Parameters are plain dicts of tensors in the reference package's layout
 accumulate in float32 (cuBLAS and the CPU kernels do) and round to the
 activation dtype, as the reference's ``preferred_element_type`` einsums
 do; the LM head returns float32 logits.
+
+Under a mesh the MLP and the embedding are Megatron's: the MLP is
+column-parallel in ``w_gate``/``w_up`` and row-parallel in ``w_down``
+(:func:`row_parallel`: the rank's partial product in float32, one
+``psum`` over the model axes, then rounded), and the embedding is
+vocab-parallel (the rank's rows answer its ids, the others give 0, one
+``psum``). A leaf ``param_spec`` left whole runs as without a mesh.
 """
 from __future__ import annotations
 
@@ -13,6 +20,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import dist
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -122,7 +131,19 @@ def apply_rope(x, positions, theta: float, tables=None):
 # ---------------------------------------------------------------------------
 
 
-def apply_mlp(params, x, act: str):
+def row_parallel(h, w, dtype):
+    """The row-parallel product ``h @ w`` of a whole ``w`` split by rows
+    over the model axes: ``h`` the rank's block of columns, ``w`` its
+    block of rows. The partial products are summed in float32 by one
+    ``psum`` and rounded to ``dtype`` once, as the whole product is."""
+    return dist.psum_model(torch.matmul(h.float(), w.float())).to(dtype)
+
+
+def apply_mlp(params, x, act: str, d_ff: int = 0):
+    """The MLP; ``d_ff`` is the config's hidden width, which tells a
+    column/row-parallel block of the weights (its width d_ff/t) from
+    whole weights (0: whole)."""
+    split = bool(d_ff) and dist.split_block(params["w_up"].shape[-1], d_ff)
     if act == "silu":
         gate = matmul(x, params["w_gate"])
         up = matmul(x, params["w_up"])
@@ -132,6 +153,8 @@ def apply_mlp(params, x, act: str):
                    approximate="tanh").to(x.dtype)
     else:
         raise ValueError(f"unknown act {act!r}")
+    if split:
+        return row_parallel(h, params["w_down"], x.dtype)
     return torch.matmul(h, params["w_down"])
 
 
@@ -140,8 +163,20 @@ def apply_mlp(params, x, act: str):
 # ---------------------------------------------------------------------------
 
 
-def embed(params, tokens):
+def embed(params, tokens, vocab: int = 0):
+    """Rows of ``params["tok"]`` for ``tokens``. With ``vocab`` (the
+    config's V) a table of V/t rows is the rank's block of a vocab-parallel
+    embedding: ids in its rows are looked up, the others give 0, and one
+    ``psum`` over the model axes completes every row (a sum of one value
+    and zeros, so exact)."""
     tok = params["tok"]
+    if vocab and dist.split_block(tok.shape[0], vocab):
+        n = tok.shape[0]
+        local = tokens.reshape(-1).long() - dist.tp_rank() * n
+        mine = (local >= 0) & (local < n)
+        rows = tok.index_select(0, torch.where(mine, local, 0))
+        rows = torch.where(mine[:, None], rows, torch.zeros_like(rows))
+        return dist.psum_model(rows).reshape(*tokens.shape, tok.shape[-1])
     return tok.index_select(0, tokens.reshape(-1)).reshape(
         *tokens.shape, tok.shape[-1])
 

@@ -61,7 +61,9 @@ class Model:
         ``device`` (not the reference's values: use the bridge for those)."""
         cfg = self.cfg
         dev = resolve_device(device)
-        g = torch.Generator(device=dev).manual_seed(seed)
+        # the meta device takes no generator: shapes and dtypes only
+        g = None if dev.type == "meta" else \
+            torch.Generator(device=dev).manual_seed(seed)
         params = {"emb": init_embeddings(g, cfg, dev),
                   "stack": self._init_stack(g, cfg, dev)}
         if cfg.is_encdec:
@@ -83,7 +85,7 @@ class Model:
         prefill/train (positions start at 0)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = embed(params["emb"], tokens)
+        x = embed(params["emb"], tokens, cfg.vocab_size)
         enc_out = None
         if cfg.family == "vlm" and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
@@ -110,25 +112,29 @@ class Model:
                                  cache, mode, window=window, remat=remat,
                                  **kw)
 
-    @staticmethod
-    def _logits(params, y):
+    def _logits(self, params, y):
         """The LM head. Under a mesh whose model axes' size t divides V,
         only the rank's V block (``(b, V/t)``: columns ``r·V/t`` on, r its
         model index) — the logits leave the head sharded (B@batch,
         V@model), the paper's starting condition for the decision plane;
-        whole rows otherwise. The head's weight is whole on every rank
-        (the dense weights are replicated), and the block is its slice."""
+        whole rows otherwise. A head ``param_spec`` split is the rank's
+        block as it is (a tied head: ``emb/tok``'s rows); a whole head
+        under such a mesh (the expert-only cut of ``shard_tree``) gives
+        its slice."""
         emb = params["emb"]
-        ctx = dist.get_ctx()
-        tp = ctx.axis_size(ctx.model_axes)
-        V = emb["head"].shape[-1] if "head" in emb else emb["tok"].shape[0]
-        if not ctx.active or tp <= 1 or V % tp:
+        V = self.cfg.vocab_size
+        tp = dist.tp_size()
+        if tp <= 1 or V % tp:
             return lm_head(emb, y)
-        lo = dist.axis_index(ctx.model_axes) * (V // tp)
+        n = V // tp
         if "head" in emb:
-            block = {"head": emb["head"][:, lo:lo + V // tp]}
+            w = emb["head"]
+            block = {"head": w if w.shape[-1] == n
+                     else dist.model_block(w, w.dim() - 1, n)}
         else:
-            block = {"tok": emb["tok"][lo:lo + V // tp]}
+            w = emb["tok"]
+            block = {"tok": w if w.shape[0] == n
+                     else dist.model_block(w, 0, n)}
         return lm_head(block, y)
 
     @staticmethod
@@ -235,3 +241,20 @@ class Model:
         if last:
             return self._logits(stage_params, y[:, -1]), cache
         return y, cache
+
+    # -- input specs for the programs ---------------------------------------
+    def input_specs(self, batch: int, seq_len: int, kind: str):
+        """Stand-ins for every model input on the meta device (shapes and
+        dtypes, no allocation), as the reference's ``ShapeDtypeStruct``s."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        meta = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype,
+                                                    device="meta")
+        specs = {"tokens": meta(batch, seq_len, dtype=torch.int32)}
+        if cfg.family == "vlm" and kind != "decode":
+            specs["patch_embeds"] = meta(
+                batch, cfg.frontend.num_embeddings, cfg.d_model)
+        if cfg.is_encdec and kind != "decode":
+            specs["frames"] = meta(batch, cfg.encoder.num_frames,
+                                   cfg.d_model)
+        return specs

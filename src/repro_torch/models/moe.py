@@ -33,6 +33,10 @@ the mean of the data blocks' losses (``pmean``), as in the reference.
 The reference's shape arithmetic reads the global batch; a rank's ``x``
 is its block, so the EP paths take B = b_loc · dp (the batch is split
 evenly over the batch axes under a mesh).
+
+The router stays replicated and the optional shared expert is a
+tensor-parallel MLP (``layers.apply_mlp``: ``param_spec`` splits its
+hidden dim over the model axes like a dense MLP's).
 """
 from __future__ import annotations
 
@@ -177,7 +181,9 @@ def apply_moe(params, x, cfg: ModelConfig, *, train: bool = False):
             out = out[r0:r0 + B]
         aux = _aux_loss(probs, ids, m.num_experts) if train else None
     if "shared" in params:
-        out = out + apply_mlp(params["shared"], x, cfg.act)
+        # the shared expert: a tensor-parallel MLP under a mesh
+        out = out + apply_mlp(params["shared"], x, cfg.act,
+                              m.shared_expert_d_ff)
     if not train:
         return out, 0.0
     return out, aux * m.aux_loss_weight

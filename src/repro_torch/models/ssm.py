@@ -19,6 +19,14 @@ Mamba2 (SSD, simplified: ngroups=1, conv over x only), per layer
       y_t  = h_t · C_t + D x_t
   with gated RMSNorm and output projection.
 
+Under a mesh (``models/dist.py``) RWKV-6 is Megatron's: the time mix's
+``w_r``/``w_k``/``w_v``/``w_g`` are column blocks that fall on head
+boundaries, so a rank runs the WKV recurrence of its own heads on its
+block of the state, and ``w_o`` is row-parallel (one ``psum``); the
+channel mix is column-parallel in ``w_ck`` and row-parallel in ``w_cv``
+and ``w_cr`` (their two partial sums in one ``psum``). Mamba2's weights
+are replicated (``param_spec``), so it runs whole on every rank.
+
 Products the reference keeps in float32 (``preferred_element_type`` with
 no cast) run as float32 GEMMs of the widened operands here; the others
 accumulate in f32 and round to the activation dtype (``matmul``).
@@ -32,8 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.models import dist
 from repro_torch.models.layers import dense_init, matmul, rms_norm, \
-    torch_dtype
+    row_parallel, torch_dtype
 
 
 def matmul_f32(x, w):
@@ -80,11 +89,12 @@ def init_rwkv(gen: torch.Generator, cfg: ModelConfig, device,
     }
 
 
-def _rwkv_decay(p, xw):
-    """Data-dependent per-channel decay in (0, 1). xw: (..., d)."""
+def _rwkv_decay(p, xw, cols=slice(None)):
+    """Data-dependent per-channel decay in (0, 1) of the channels
+    ``cols``. xw: (..., d)."""
     lora = matmul_f32(xw, p["lora_a"])
-    lora = torch.matmul(torch.tanh(lora), p["lora_b"].float())
-    return torch.exp(-torch.exp(p["w0"].float() + lora))
+    lora = torch.matmul(torch.tanh(lora), p["lora_b"][..., cols].float())
+    return torch.exp(-torch.exp(p["w0"][..., cols].float() + lora))
 
 
 def _rwkv_mix(x, x_prev, mu):
@@ -95,10 +105,21 @@ def _rwkv_mix(x, x_prev, mu):
 def rwkv_time_mix_seq(p, x, x_last, state, cfg: ModelConfig):
     """x: (B, T, d); x_last: (B, d) the previous token's input (zeros at
     the start); state: (B, H, hs, hs) f32. Returns (out, new_x_last,
-    new_state)."""
+    new_state). Under a mesh the rank's block of the r/k/v/g columns
+    makes ``state`` its heads' (B, H/t, hs, hs)."""
     B, T, d = x.shape
     hs = cfg.ssm.rwkv_head_size
-    H = d // hs
+    dl = p["w_r"].shape[-1]                 # the rank's channels
+    split = dist.split_block(dl, d)
+    cols = slice(None)
+    if split:
+        if dl % hs:
+            raise NotImplementedError(
+                f"{cfg.name}: the time mix's column block of {dl} ends "
+                f"inside a head of {hs}; not ported (ROADMAP item 7d)")
+        c0 = dist.tp_rank() * dl
+        cols = slice(c0, c0 + dl)
+    H = dl // hs
     x_prev = torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
     mu = p["mu"]
     xr, xk, xv, xw, xg = (_rwkv_mix(x, x_prev, mu[i]) for i in range(5))
@@ -106,8 +127,8 @@ def rwkv_time_mix_seq(p, x, x_last, state, cfg: ModelConfig):
     k = matmul_f32(xk, p["w_k"]).reshape(B, T, H, hs)
     v = matmul_f32(xv, p["w_v"]).reshape(B, T, H, hs)
     g = F.silu(matmul_f32(xg, p["w_g"]))
-    w = _rwkv_decay(p, xw).reshape(B, T, H, hs)
-    u = p["u"].float().reshape(H, hs)[..., :, None]       # (H, hs, 1)
+    w = _rwkv_decay(p, xw, cols).reshape(B, T, H, hs)
+    u = p["u"][..., cols].float().reshape(H, hs)[..., :, None]  # (H, hs, 1)
     ys = []
     for t in range(T):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]    # (B, H, hs, hs)
@@ -118,19 +139,38 @@ def rwkv_time_mix_seq(p, x, x_last, state, cfg: ModelConfig):
     # per-head group norm
     y = rms_norm(y, torch.ones((hs,), dtype=torch.float32, device=x.device),
                  cfg.rmsnorm_eps)
-    y = y.reshape(B, T, d) * p["ln_x"].float()
+    y = y.reshape(B, T, dl) * p["ln_x"][..., cols].float()
     y = (y * g).to(x.dtype)
-    return matmul(y, p["w_o"]), x[:, -1], state
+    out = row_parallel(y, p["w_o"], x.dtype) if split else matmul(y, p["w_o"])
+    return out, x[:, -1], state
 
 
-def rwkv_channel_mix_seq(p, x, x_last):
-    """Channel-mix with token shift. Returns (out, new_x_last)."""
+def rwkv_channel_mix_seq(p, x, x_last, d_ff: int = 0):
+    """Channel-mix with token shift. Returns (out, new_x_last). ``d_ff``
+    (the config's) tells a column block of ``w_ck`` from a whole one; a
+    block of ``w_cr``'s rows shows against x's whole width."""
     x_prev = torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
     xk = _rwkv_mix(x, x_prev, p["mu_c"][0])
     xr = _rwkv_mix(x, x_prev, p["mu_c"][1])
     k = torch.square(torch.relu(matmul_f32(xk, p["w_ck"])))
-    kv = matmul(k.to(x.dtype), p["w_cv"])
-    r = torch.sigmoid(matmul_f32(xr, p["w_cr"]))
+    nr = p["w_cr"].shape[-2]
+    ff_split = bool(d_ff) and dist.split_block(p["w_ck"].shape[-1], d_ff)
+    cr_split = dist.split_block(nr, x.shape[-1])
+    if ff_split or cr_split:
+        # the row-parallel partial sums, both in float32, in one psum
+        kv = torch.matmul(k.to(x.dtype).float(), p["w_cv"].float())
+        r = matmul_f32(dist.model_block(xr, -1, nr) if cr_split else xr,
+                       p["w_cr"])
+        parts = [t for t, sp in ((kv, ff_split), (r, cr_split)) if sp]
+        summed = iter(dist.psum_model(torch.cat(parts, -1))
+                      .split([t.shape[-1] for t in parts], -1))
+        kv = next(summed) if ff_split else kv
+        r = next(summed) if cr_split else r
+        kv = kv.to(x.dtype)
+    else:
+        kv = matmul(k.to(x.dtype), p["w_cv"])
+        r = matmul_f32(xr, p["w_cr"])
+    r = torch.sigmoid(r)
     return r.to(x.dtype) * kv, x[:, -1]
 
 

@@ -34,6 +34,17 @@ scatters the new entries into the pool. Unlike the reference's immutable
 arrays, K/V entries and recurrent states are written IN PLACE (the cache
 is the largest state the engine holds); ``len``/``pos`` are replaced,
 not mutated.
+
+Under a mesh whose model axes have size t > 1 (``models/dist.py``) a
+rank's cache holds its block (:func:`init_cache`): the K/V sequence
+dimension is split over the model axes where t divides it
+(``launch/sharding.cache_shardings``; the forward reads a block from a
+length t divides, :func:`kv_span`), whisper's cross K/V by frames, RWKV's
+token shifts and Zamba2's conv carry by channels, RWKV's WKV state by the
+heads of the rank's time mix. A step gathers the carried channels once
+(one all-gather of every layer's) and each layer writes back its block.
+Paged caches and chunked prefill under tensor parallelism are not ported
+(ROADMAP item 7f).
 """
 from __future__ import annotations
 
@@ -43,15 +54,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.attention import (_expand_gqa, _project_qkv,
+from repro_torch.models import dist
+from repro_torch.models.attention import (_expand_gqa, _out_proj,
+                                         _project_qkv,
                                          attend_full, attention_block,
                                          cross_attention_block,
                                          flat_block_indices,
                                          gather_block_view, init_attention,
                                          project_enc_kv, scatter_block_kv)
 from repro_torch.models.layers import (apply_mlp, dense_init, init_mlp,
-                                      layer_norm, matmul, rms_norm,
-                                      rope_tables, torch_dtype)
+                                      layer_norm, rms_norm, rope_tables,
+                                      torch_dtype)
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.ssm import (init_mamba, init_rwkv, mamba_dims,
                                     mamba_seq, rwkv_channel_mix_seq,
@@ -69,6 +82,54 @@ def cache_len_for(cfg: ModelConfig, seq_len: int,
     return min(seq_len, w) if w else seq_len
 
 
+def kv_span(n: int):
+    """(lo, S) of a K/V cache leaf whose sequence dimension holds ``n``
+    slots on this rank: its block lo..lo+n-1 of S = t·n slots where the
+    model axes' size t > 1 divides n, None (whole) otherwise. The rule
+    reads the block's own length, so :func:`init_cache` splits a cache of
+    S slots only where t divides S/t as well."""
+    t = dist.tp_size()
+    if t > 1 and n % t == 0:
+        return dist.tp_rank() * n, t * n
+    return None
+
+
+def kv_slots(S: int) -> int:
+    """The slots a rank holds of a K/V cache of S: S/t where t divides it
+    (``cache_shardings``), S otherwise."""
+    t = dist.tp_size()
+    if t <= 1 or S % t:
+        return S
+    if (S // t) % t:
+        raise ValueError(
+            f"a K/V cache of {S} slots splits over {t} model ranks into "
+            f"blocks of {S // t}, which {t} does not divide: the forward "
+            "could not tell such a block from a whole cache")
+    return S // t
+
+
+def _cut(n: int) -> int:
+    """A dimension of n the spec splits over the model axes: n/t where t
+    divides it, n otherwise."""
+    t = dist.tp_size()
+    return n // t if t > 1 and n % t == 0 else n
+
+
+def rwkv_heads_local(cfg: ModelConfig) -> int:
+    """The RWKV-6 heads of this rank's time mix: H/t where the column
+    split of ``w_r``/``w_k``/``w_v``/``w_g`` falls on head boundaries."""
+    d, hs = cfg.d_model, cfg.ssm.rwkv_head_size
+    H, t = d // hs, dist.tp_size()
+    if t <= 1 or d % t:
+        return H
+    if H % t:
+        raise NotImplementedError(
+            f"{cfg.name}: the time mix's column split over {t} model ranks "
+            f"ends inside a head ({H} heads of {hs}); not ported (ROADMAP "
+            "item 7d)")
+    return H // t
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                window: Optional[int] = None, dtype=None, device="cpu"):
     """The decode/prefill cache of ``cfg``'s family. ``seq_len`` is the
@@ -77,7 +138,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     shifts; Zamba2 its f32 SSM state, the conv carry and the K/V of its
     G = ceil(L / attn_every) shared-attention sites, over a window of
     4096 unless the arch or the caller sets one. An encoder-decoder
-    (whisper) adds the cross K/V of its ``num_frames`` encoder frames."""
+    (whisper) adds the cross K/V of its ``num_frames`` encoder frames.
+
+    Under a mesh the cache is this rank's block of ``batch`` rows (the
+    rows are the caller's): the split dimensions of the module docstring
+    cut to 1/t."""
     dtype = dtype or torch_dtype(cfg.dtype)
     hd, nkv, d, L = (cfg.resolved_head_dim, cfg.num_kv_heads, cfg.d_model,
                      cfg.num_layers)
@@ -86,25 +151,31 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     cache = {"len": zeros(batch, dt=torch.int32),
              "pos": zeros(dt=torch.int32)}
     if cfg.family in ("dense", "moe", "vlm", "audio"):
-        Sc = cache_len_for(cfg, seq_len, window)
+        Sc = kv_slots(cache_len_for(cfg, seq_len, window))
         cache["k"] = zeros(L, batch, Sc, nkv, hd)
         cache["v"] = zeros(L, batch, Sc, nkv, hd)
         if cfg.is_encdec:
-            Se = cfg.encoder.num_frames
+            Se = _cut(cfg.encoder.num_frames)
             cache["cross_k"] = zeros(L, batch, Se, nkv, hd)
             cache["cross_v"] = zeros(L, batch, Se, nkv, hd)
     elif cfg.family == "ssm":        # rwkv6
         hs = cfg.ssm.rwkv_head_size
-        cache["ssm"] = zeros(L, batch, d // hs, hs, hs, dt=torch.float32)
-        cache["x_last_t"] = zeros(L, batch, d)
-        cache["x_last_c"] = zeros(L, batch, d)
+        cache["ssm"] = zeros(L, batch, rwkv_heads_local(cfg), hs, hs,
+                             dt=torch.float32)
+        cache["x_last_t"] = zeros(L, batch, _cut(d))
+        cache["x_last_c"] = zeros(L, batch, _cut(d))
     elif cfg.family == "hybrid":     # zamba2: mamba states + shared-attn kv
         inner, nheads, headdim, N = mamba_dims(cfg)
         G = -(-L // cfg.hybrid.attn_every)
-        Sc = cache_len_for(cfg, seq_len,
-                           window or cfg.sliding_window or 4096)
-        cache["ssm"] = zeros(L, batch, nheads, headdim, N, dt=torch.float32)
-        cache["conv"] = zeros(L, batch, cfg.ssm.conv_size - 1, inner)
+        Sc = kv_slots(cache_len_for(cfg, seq_len,
+                                     window or cfg.sliding_window or 4096))
+        ssm = [nheads, headdim, N]
+        if dist.get_ctx().active and dist.get_ctx().batch_axes is None:
+            # the batch replicated: the spec splits the heads, else N
+            i = 0 if _cut(nheads) != nheads else 2
+            ssm[i] = _cut(ssm[i])
+        cache["ssm"] = zeros(L, batch, *ssm, dt=torch.float32)
+        cache["conv"] = zeros(L, batch, cfg.ssm.conv_size - 1, _cut(inner))
         cache["k"] = zeros(G, batch, Sc, nkv, hd)
         cache["v"] = zeros(G, batch, Sc, nkv, hd)
     else:
@@ -113,7 +184,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def _write_kv(cache_k_l, cache_v_l, k, v, lens, mode: str,
-              mask=None) -> None:
+              mask=None, span=None) -> None:
     """Write new K/V into one layer's cache, in place. Handles ring buffers.
 
     cache_k_l: (B, Sc, nkv, hd); k: (B, S_new, nkv, hd); lens: (B,) current
@@ -122,7 +193,13 @@ def _write_kv(cache_k_l, cache_v_l, k, v, lens, mode: str,
     entries rotated into ring order (the reference's ``jnp.roll``).
     Mode "chunk": an S_new-wide slab at each row's offset, only for rows in
     ``mask`` (B,); other rows keep their entries.
+
+    ``span`` = (lo, S) (:func:`kv_span`): the cache is this rank's slots
+    lo.. of S, and only the entries that land there are written.
     """
+    if span is not None:
+        _write_kv_block(cache_k_l, cache_v_l, k, v, lens, mode, span)
+        return
     Sc = cache_k_l.shape[1]
     S_new = k.shape[1]
     if mode == "decode":            # one token per row at slot lens[b] % Sc
@@ -157,6 +234,36 @@ def _write_kv(cache_k_l, cache_v_l, k, v, lens, mode: str,
                                            cache_v_l[rows, idx])
     else:
         raise ValueError(f"unknown KV write mode {mode!r}")
+
+
+def _write_kv_block(cache_k_l, cache_v_l, k, v, lens, mode: str,
+                    span) -> None:
+    """:func:`_write_kv` on the rank's slots lo..lo+n-1 of a cache of S:
+    the single-device write's image, cut to the block."""
+    lo, Sc = span
+    n, S_new = cache_k_l.shape[1], k.shape[1]
+    if mode == "decode":
+        rows = torch.arange(k.shape[0], device=k.device)
+        local = lens.long() % Sc - lo
+        mine = ((local >= 0) & (local < n))[:, None, None]
+        slot = torch.clamp(local, 0, n - 1)
+        cache_k_l[rows, slot] = torch.where(mine, k[:, 0].to(cache_k_l.dtype),
+                                            cache_k_l[rows, slot])
+        cache_v_l[rows, slot] = torch.where(mine, v[:, 0].to(cache_v_l.dtype),
+                                            cache_v_l[rows, slot])
+    elif mode == "prefill":
+        if S_new >= Sc:
+            s0 = S_new % Sc
+            cache_k_l.copy_(torch.roll(k[:, -Sc:], s0, dims=1)[:, lo:lo + n])
+            cache_v_l.copy_(torch.roll(v[:, -Sc:], s0, dims=1)[:, lo:lo + n])
+        else:
+            m = max(0, min(n, S_new - lo))
+            cache_k_l[:, :m] = k[:, lo:lo + m]
+            cache_v_l[:, :m] = v[:, lo:lo + m]
+    else:
+        raise NotImplementedError(
+            f"KV write mode {mode!r} on a cache split over the model axes "
+            "(chunked prefill under tensor parallelism: ROADMAP item 7f)")
 
 
 def stage_bounds(num_layers: int, num_stages: int):
@@ -295,6 +402,12 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
                          "(batch['frames'])")
     lens0 = None if train else cache["len"]
     paged = not train and "k_pool" in cache
+    if paged and dist.tp_size() > 1:
+        raise NotImplementedError("a paged cache under tensor parallelism "
+                                  "(ROADMAP item 7f)")
+    span = None if train or paged else kv_span(cache["k"].shape[2])
+    cross_split = cfg.is_encdec and not train and dist.split_block(
+        cache["cross_k"].shape[2], cfg.encoder.num_frames)
     if paged:
         assert mode in ("decode", "chunk"), \
             "a paged cache serves decode and chunk mode only (prefill rows " \
@@ -333,10 +446,11 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
                 ck, cv = cache["k"][i], cache["v"][i]
             # write first so each token attends to itself
             qkv = _project_qkv(lp["attn"], h, cfg, positions, rt)
-            _write_kv(ck, cv, qkv[1], qkv[2], lens0, mode, chunk_mask)
+            _write_kv(ck, cv, qkv[1], qkv[2], lens0, mode, chunk_mask, span)
             attn_out, _, _ = attention_block(
                 lp["attn"], h, cfg, positions, cache_k=ck, cache_v=cv,
-                kv_len=kv_len, mode=mode, window=win, qkv=qkv)
+                kv_len=kv_len, mode=mode, window=win, qkv=qkv,
+                kv_span=span)
             if paged:
                 # persist only the new entries
                 scatter_block_kv(cache["k_pool"][i], qkv[1], pool_flat)
@@ -347,7 +461,7 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
                                              rope_tables=rt)
             if mode == "prefill":
                 _write_kv(cache["k"][i], cache["v"][i], k, v, lens0,
-                          "prefill")
+                          "prefill", span=span)
         else:
             raise ValueError(f"unknown stack mode {mode!r}")
         x = x + attn_out
@@ -355,8 +469,11 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
             if compute_cross:
                 ckv = project_enc_kv(lp["cross"], enc_out, cfg)
                 if not train:
-                    cache["cross_k"][i].copy_(ckv[0])
-                    cache["cross_v"][i].copy_(ckv[1])
+                    n = cache["cross_k"].shape[2]
+                    own = (lambda t: dist.model_block(t, 1, n)) \
+                        if cross_split else (lambda t: t)
+                    cache["cross_k"][i].copy_(own(ckv[0]))
+                    cache["cross_v"][i].copy_(own(ckv[1]))
             else:
                 ckv = (cache["cross_k"][i], cache["cross_v"][i])
             x = x + cross_attention_block(
@@ -365,7 +482,7 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
         if cfg.moe is not None:
             ff, aux_l = apply_moe(lp["moe"], h2, cfg, train=train)
         else:
-            ff, aux_l = apply_mlp(lp["mlp"], h2, cfg.act), 0.0
+            ff, aux_l = apply_mlp(lp["mlp"], h2, cfg.act, cfg.d_ff), 0.0
         return x + ff, aux_l
 
     aux = _train_aux(mode, x)
@@ -407,30 +524,41 @@ def apply_rwkv_stack(params, x, positions, cfg: ModelConfig, cache,
         f"the RWKV stack runs train, prefill and decode, not {mode!r}"
     eps = cfg.rmsnorm_eps
     train = mode == "train"
+    d = cfg.d_model
     if train:
-        B, d = x.shape[0], cfg.d_model
+        B = x.shape[0]
         hs = cfg.ssm.rwkv_head_size
-        state0 = torch.zeros((B, d // hs, hs, hs), device=x.device)
+        state0 = torch.zeros((B, params["layers"]["w_r"].shape[-1] // hs,
+                              hs, hs), device=x.device)
         last0 = x.new_zeros((B, d))
+    else:
+        # the token shifts' blocks made whole once a step
+        n = cache["x_last_t"].shape[-1]
+        shift_split = dist.split_block(n, d)
+        lasts = dist.gather_cols([cache["x_last_t"], cache["x_last_c"]]) \
+            if shift_split else [cache["x_last_t"], cache["x_last_c"]]
+        own = (lambda t: dist.model_block(t, -1, n)) if shift_split \
+            else (lambda t: t)
 
     def layer(x, lp, ln1, ln2, st, lt, lc):
         tm, lt, st = rwkv_time_mix_seq(lp, rms_norm(x, ln1, eps), lt, st,
                                        cfg)
         x = x + tm
-        cm, lc = rwkv_channel_mix_seq(lp, rms_norm(x, ln2, eps), lc)
+        cm, lc = rwkv_channel_mix_seq(lp, rms_norm(x, ln2, eps), lc,
+                                      cfg.d_ff)
         return x + cm, st, lt, lc
 
     per_layer = zip(_unstack(params["layers"]), _unstack(params["ln1"]),
                     _unstack(params["ln2"]))
     for i, (lp, ln1, ln2) in enumerate(per_layer):
         states = (state0, last0, last0) if train else (
-            cache["ssm"][i], cache["x_last_t"][i], cache["x_last_c"][i])
+            cache["ssm"][i], lasts[0][i], lasts[1][i])
         x, st, lt, lc = _run_layer(layer, remat and train, x, lp, ln1, ln2,
                                    *states)
         if not train:
             cache["ssm"][i].copy_(st)
-            cache["x_last_t"][i].copy_(lt)
-            cache["x_last_c"][i].copy_(lc)
+            cache["x_last_t"][i].copy_(own(lt))
+            cache["x_last_c"][i].copy_(own(lc))
     if not train:
         cache = _bump_len(cache, x.shape[1])
     return rms_norm(x, params["final_ln"], eps), cache, _train_aux(mode, x)
@@ -478,6 +606,27 @@ def apply_zamba_stack(params, x, positions, cfg: ModelConfig, cache,
         ssm0 = torch.zeros((B, nheads, headdim, N), device=x.device)
     else:
         lens0 = cache["len"]
+        span = kv_span(cache["k"].shape[2])
+        # Mamba2 runs whole: the state blocks the cache holds (the conv
+        # carry's channels; the SSM state's where the spec splits it) are
+        # made whole once a step, and each layer writes back its block
+        inner, nheads, headdim, N = mamba_dims(cfg)
+        whole = {"conv": (None, None, None, inner),
+                 "ssm": (None, None, nheads, headdim, N)}
+        states, owns = {}, {}
+        for name, dims in whole.items():
+            leaf = cache[name]
+            sd = [i for i, w in enumerate(dims)
+                  if w is not None and dist.split_block(leaf.shape[i], w)]
+            assert len(sd) <= 1, (name, tuple(leaf.shape))
+            if sd:
+                n = leaf.shape[sd[0]]
+                states[name] = dist.gather_model(leaf, sd[0])
+                owns[name] = (lambda t, i=sd[0] - 1, n=n:
+                              dist.model_block(t, i, n))
+            else:
+                states[name] = leaf
+                owns[name] = lambda t: t
     rt = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) \
         if cfg.rope_theta > 0 else None
     attn_p = params["shared_attn"]
@@ -493,28 +642,30 @@ def apply_zamba_stack(params, x, positions, cfg: ModelConfig, cache,
             ck, cv = cache["k"][g], cache["v"][g]
             # write first so the token attends to itself
             qkv = _project_qkv(attn_p, h, cfg, positions, rt)
-            _write_kv(ck, cv, qkv[1], qkv[2], lens0, "decode")
+            _write_kv(ck, cv, qkv[1], qkv[2], lens0, "decode", span=span)
             attn_out, _, _ = attention_block(
                 attn_p, h, cfg, positions, cache_k=ck, cache_v=cv,
-                kv_len=lens0 + 1, mode="decode", window=win, qkv=qkv)
+                kv_len=lens0 + 1, mode="decode", window=win, qkv=qkv,
+                kv_span=span)
         else:
             attn_out, k, v = attention_block(attn_p, h, cfg, positions,
                                              mode="train", window=win,
                                              rope_tables=rt)
             if not train:
                 _write_kv(cache["k"][g], cache["v"][g], k, v, lens0,
-                          "prefill")
+                          "prefill", span=span)
         x = x + attn_out
         x = x + apply_mlp(params["shared_mlp"],
-                          rms_norm(x, params["shared_ln2"], eps), cfg.act)
+                          rms_norm(x, params["shared_ln2"], eps), cfg.act,
+                          cfg.d_ff)
         for i in range(lo, min(lo + every, L)):
-            states = (conv0, ssm0) if train else (cache["conv"][i],
-                                                  cache["ssm"][i])
+            st = (conv0, ssm0) if train else (states["conv"][i],
+                                              states["ssm"][i])
             x, conv, ssm = _run_layer(mamba_layer, remat and train, x,
-                                      mamba_p[i], ln_m[i], *states)
+                                      mamba_p[i], ln_m[i], *st)
             if not train:
-                cache["conv"][i].copy_(conv)
-                cache["ssm"][i].copy_(ssm)
+                cache["conv"][i].copy_(owns["conv"](conv))
+                cache["ssm"][i].copy_(owns["ssm"](ssm))
     if not train:
         cache = _bump_len(cache, x.shape[1])
     return rms_norm(x, params["final_ln"], eps), cache, _train_aux(mode, x)
@@ -552,6 +703,6 @@ def apply_encoder(params, frames, cfg: ModelConfig):
                                rope=False)
         out = attend_full(_expand_gqa(q, cfg.num_kv_heads), k, v,
                           causal=False, window=0).reshape(B, S, -1)
-        x = x + matmul(out, lp["attn"]["w_o"])
-        x = x + apply_mlp(lp["mlp"], ln(x, lp["ln2"]), cfg.act)
+        x = x + _out_proj(out, lp["attn"]["w_o"], out.dtype)
+        x = x + apply_mlp(lp["mlp"], ln(x, lp["ln2"]), cfg.act, cfg.d_ff)
     return ln(x, params["final_ln"])

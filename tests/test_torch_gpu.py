@@ -713,3 +713,47 @@ def test_gumbel_rows_from_row0_match_the_whole_batch(row0):
     got = gumbel_kernel.gumbel_argmax(part, 77, row0)
     assert torch.equal(got, ref.gumbel_argmax_ref(part, 77, row0))
     assert torch.equal(got, whole[row0:row0 + 2])
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-3b"])
+def test_tp_forward_on_a_one_rank_mesh_equals_no_mesh(arch):
+    """Under a (1, 1) NCCL mesh every leaf ``shard_tree`` cuts is whole
+    and the tensor-parallel forward is the forward without a mesh: the
+    logits of a prefill and two decode steps are equal bit for bit."""
+    import socket
+
+    import torch.distributed as tdist
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import dist
+    dev = _cuda()
+    cfg = get_arch(arch).reduced()
+    model = Model(cfg)
+    full = model.init(seed=0, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 8))).to(dev)
+
+    def run(p):
+        cache = model.init_cache(4, 16, device=dev)
+        lg, cache = model.prefill(p, {"tokens": toks}, cache)
+        out = [lg]
+        for _ in range(2):
+            lg, cache = model.decode_step(p, lg.argmax(-1), cache)
+            out.append(lg)
+        return torch.stack(out)
+
+    want = run(full)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_local_mesh(1, 1)
+        with dist.use_mesh(mesh):
+            got = run(sharding.shard_tree(full, mesh, cfg,
+                                          keep=sharding.every_leaf))
+    finally:
+        tdist.destroy_process_group()
+    assert torch.equal(got, want)

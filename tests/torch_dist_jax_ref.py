@@ -12,6 +12,16 @@ host devices), it writes one ``.npz`` of inputs and outputs.
 * the EP MoE on reduced f32 granite (4 experts, d_ff_expert 512) at
   (2, 4) under ``REPRO_MOE_STRATEGY=gather`` and ``=scatter``, and the
   local path: output and aux, with the weights and input.
+
+    python tests/torch_dist_jax_ref.py OUT.npz programs
+
+writes instead the reference's serving programs at (2, 4) on reduced f32
+smollm-360m (``tests/test_torch_tp.py``): ``make_prefill_program`` (B = 8,
+a 16-token prompt) and three ``make_serve_step_program`` steps (S1,
+``shvs``; the prefill cache padded to 32 slots), each jitted with its own
+shardings, with their tokens and the logits of the same forward
+(``Model.prefill`` / ``decode_step`` jitted with the programs' param and
+cache shardings), the inputs, and the weights under ``p/...``.
 """
 import os
 import sys
@@ -137,5 +147,89 @@ def main(path):
     np.savez(path, **out)
 
 
+PROG_B, PROG_S, PROG_SC, PROG_STEPS = 8, 16, 32, 3
+# rows alternate greedy and sampled (τ 0.8, top-k 20, repetition 1.2)
+PROG_SP = dict(temperature=[0.0, 0.8] * 4, top_k=[0, 20] * 4,
+               top_p=[1.0] * 8, min_p=[0.0] * 8,
+               repetition_penalty=[1.0, 1.2] * 4, presence_penalty=[0.0] * 8,
+               frequency_penalty=[0.0] * 8)
+
+
+def programs(path):
+    """The reference's prefill and serve-step programs at (2, 4)."""
+    from repro.config import ShapeConfig
+    from repro.core import penalties as pen
+    from repro.launch import steps
+    from repro.models.model import Model
+
+    assert len(jax.devices()) == 8
+    mesh = Mesh(np.asarray(jax.devices()).reshape(2, 4), ("data", "model"))
+    cfg = get_arch("smollm-360m").reduced()
+    model = Model(cfg)
+    B, S, Sc = PROG_B, PROG_S, PROG_SC
+    params = model.init(jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    sp = SamplingParams(**{k: jnp.asarray(v, jnp.int32 if k == "top_k"
+                                          else jnp.float32)
+                           for k, v in PROG_SP.items()})
+    out = {"tokens": tokens}
+    for k, v in PROG_SP.items():
+        out[f"sp_{k}"] = np.asarray(v)
+    flat = {}
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        else:
+            flat["p/" + prefix] = np.asarray(t)
+    walk(params, "")
+    out.update(flat)
+
+    pre = steps.make_prefill_program(
+        cfg, ShapeConfig("p", S, B, "prefill"), mesh)
+    dec = steps.make_serve_step_program(
+        cfg, ShapeConfig("d", Sc, B, "decode"), mesh)
+    with dist.use_mesh(mesh, batch_axes=pre[4], model_axes=("model",)):
+        fn, a_in, ins, outs, _ = pre
+        p_sh, b_sh, c_sh, _ = ins
+        cache0 = jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype),
+                                        a_in[2])
+        batch = {"tokens": jnp.asarray(tokens)}
+        logits = jax.jit(lambda p, b, c: model.prefill(p, b, c)[0],
+                         in_shardings=(p_sh, b_sh, c_sh))(
+            params, batch, cache0)
+        tok, cache = jax.jit(fn, in_shardings=ins, out_shardings=outs)(
+            params, batch, cache0, sp)
+    toks, lgs = [np.asarray(tok)], [np.asarray(logits)]
+    # the prefill cache padded to the serve step's slots, in numpy
+    cache = {k: np.asarray(v) for k, v in cache.items()}
+    for k in ("k", "v"):
+        pad = np.zeros(cache[k].shape[:2] + (Sc - S,) + cache[k].shape[3:],
+                       cache[k].dtype)
+        cache[k] = np.concatenate([cache[k], pad], axis=2)
+    state = pen.update_histograms(
+        pen.init_state(B, cfg.vocab_size, jnp.asarray(tokens)), tok)
+    state = type(state)(*(np.asarray(x) for x in state))
+    with dist.use_mesh(mesh, batch_axes=dec[4], model_axes=("model",)):
+        fn, a_in, ins, outs, _ = dec
+        p_sh, c_sh = ins[0], ins[1]
+        step = jax.jit(fn, in_shardings=ins, out_shardings=outs)
+        logit_fn = jax.jit(lambda p, t, c: model.decode_step(p, t, c)[0],
+                           in_shardings=(p_sh, ins[3], c_sh))
+        for i in range(PROG_STEPS):
+            lgs.append(np.asarray(logit_fn(params, tok, cache)))
+            tok, cache, state = step(params, cache, state, tok, sp,
+                                     jnp.asarray(i + 1, jnp.int32))
+            toks.append(np.asarray(tok))
+    out["ref_tokens"] = np.stack(toks)
+    out["ref_logits"] = np.stack(lgs)
+    np.savez(path, **out)
+
+
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[2:] == ["programs"]:
+        programs(sys.argv[1])
+    else:
+        main(sys.argv[1])

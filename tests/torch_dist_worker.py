@@ -3,7 +3,14 @@ paths on a gloo mesh of CPU processes, held to the reference's outputs
 (``torch_dist_jax_ref.py``'s ``.npz``) and to the port's own
 single-device paths.
 
-    python tests/torch_dist_worker.py RANK WORLD PORT REF.npz OUT.json
+    python tests/torch_dist_worker.py RANK WORLD PORT REF.npz OUT.json [MODE]
+
+MODE "tp" runs instead the checks of ``tests/test_torch_tp.py`` (the
+tensor-parallel forward of every family against the single-process one,
+and the serving programs against the reference's, REF.npz being
+``torch_dist_jax_ref.py``'s "programs" output); MODE "stats" (2 ranks, no
+REF) runs known collectives and writes ``dist.collective_stats()`` for
+``tests/test_torch_hlo_analysis.py``.
 
 Every rank runs every check (SPMD); rank 0 writes the results as JSON:
 for each check, whether it held on every rank and what it measured.
@@ -18,13 +25,13 @@ import torch
 import torch.distributed as tdist
 from torch.distributed.device_mesh import init_device_mesh
 
-from repro_torch.config import SHVSConfig, get_arch
+from repro_torch.config import SHVSConfig, ShapeConfig, get_arch
 from repro_torch.core import penalties as pen
 from repro_torch.core.decision_plane import DecisionPlane
 from repro_torch.core.hierarchical import hierarchical_sample
 from repro_torch.core.sampling import SamplingParams
 from repro_torch.core.sequence_parallel import sampler_axes
-from repro_torch.launch import sharding
+from repro_torch.launch import sharding, steps
 from repro_torch.launch.mesh import MeshShape, make_local_mesh
 from repro_torch.models import dist, moe
 from repro_torch.models.model import Model
@@ -339,22 +346,248 @@ def check_decode(res, shape):
                   expert_block=list(experts) if experts else None)
 
 
-def main(rank, world, port, ref_path, out_path):
+#: the families of the tensor-parallel forward, reduced f32: (arch, prompt
+#: length, cache length, window override). starcoder2's window of 16 under
+#: a 20-token prompt makes the cache a ring that wraps; llama4's reduced
+#: MoE carries the shared expert.
+TP_ARCHS = (("smollm-360m", 6, 16, None), ("qwen3-8b", 6, 16, None),
+            ("tinyllama-1.1b", 6, 16, None), ("starcoder2-7b", 20, 32, 16),
+            ("internvl2-2b", 6, 32, None), ("whisper-base", 6, 16, None),
+            ("granite-moe-1b-a400m", 6, 16, None),
+            ("llama4-maverick-400b-a17b", 6, 16, None),
+            ("rwkv6-3b", 6, 16, None), ("zamba2-1.2b", 6, 16, None))
+TP_STEPS = 3
+#: the logits' tolerance (abs + rel) of the tensor-parallel forward: its
+#: row-parallel sums add the same terms in another order. Reduced Zamba2
+#: is ill-conditioned in f32: a relative noise of 1.2e-7 (one ulp) on its
+#: embedding table alone moves its logits by 1.0-1.9 times 1e-5
+#: (smollm-360m: 0.08-0.13 times), so it is held at 5e-5.
+TP_TOL = {"zamba2-1.2b": 5e-5}
+
+
+def tp_batch(cfg, B, S):
+    """Seeded numpy inputs: tokens, and the VLM's patch embeddings or the
+    audio family's encoder frames."""
+    rs = np.random.default_rng(11)
+    batch = {"tokens": torch.from_numpy(rs.integers(0, cfg.vocab_size,
+                                                    (B, S)))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rs.normal(size=(
+            B, cfg.frontend.num_embeddings, cfg.d_model)).astype(np.float32))
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rs.normal(size=(
+            B, cfg.encoder.num_frames, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _whole_vocab(lg, V):
+    """A rank's logits block -> its data rows over the whole vocabulary."""
+    if lg.shape[1] != V:
+        lg = dist.all_gather(lg, "model", dim=1, tiled=True)
+    return lg
+
+
+def check_tp(res, shape, archs=TP_ARCHS, batch_axes=("data",), tag=""):
+    """The tensor-parallel forward at ``shape`` (replicated over the 8
+    ranks) against the single-process forward, every family: after a
+    prefill and TP_STEPS greedy decode steps, each rank's logits block
+    within 1e-5 (abs + rel) of the single-process block, greedy tokens
+    equal, the rank's weight bytes equal to param_spec's reckoning and
+    its cache bytes at most cache_shardings' (TP_TOL: Zamba2's).
+    ``batch_axes`` None replicates the batch (the reference's B = 1
+    layout), under which the spec splits Zamba2's SSM state too."""
+    data, model = shape
+    reps = tdist.get_world_size() // (data * model)
+    mesh = init_device_mesh("cpu", (reps, data, model),
+                            mesh_dim_names=("replica", "data", "model"))
+    B = 4
+    for arch, S, Sc, window in archs:
+        cfg = get_arch(arch).reduced()
+        m = Model(cfg)
+        V = cfg.vocab_size
+        tol = TP_TOL.get(arch, 1e-5)
+        params_full = m.init(seed=0, device="cpu")
+        batch = tp_batch(cfg, B, S)
+        with dist.use_mesh(None):
+            cache = m.init_cache(B, Sc, window=window, device="cpu")
+            whole_cache = {k: v.clone() for k, v in cache.items()}
+            lg, cache = m.prefill(params_full, batch, cache, window=window)
+            want_logits, want_tokens = [lg], []
+            for _ in range(TP_STEPS):
+                t = lg.argmax(-1)
+                want_tokens.append(t)
+                lg, cache = m.decode_step(params_full, t, cache,
+                                          window=window)
+                want_logits.append(lg)
+        with dist.use_mesh(mesh, batch_axes=batch_axes):
+            p = sharding.shard_tree(params_full, mesh, cfg,
+                                    keep=sharding.every_leaf)
+            r0, n = dist.rows(B, batch_axes)
+            cache = m.init_cache(n, Sc, window=window, device="cpu")
+            mine = {k: v[r0:r0 + n] for k, v in batch.items()}
+            dist.reset_collective_stats()
+            lg, cache = m.prefill(p, mine, cache, window=window)
+            err, tok_ok = 0.0, True
+            for i in range(TP_STEPS + 1):
+                tp = dist.get_ctx().axis_size(("model",))
+                cols = V // tp if V % tp == 0 else V
+                c0 = dist.axis_index("model") * cols if cols != V else 0
+                want = want_logits[i][r0:r0 + n, c0:c0 + cols]
+                ok_shape = tuple(lg.shape) == tuple(want.shape)
+                err = max(err, float(torch.max(torch.abs(lg - want) /
+                                               (tol + tol * want.abs())))
+                          if ok_shape else float("inf"))
+                if i == TP_STEPS:
+                    break
+                t = _whole_vocab(lg, V).argmax(-1)
+                tok_ok &= torch.equal(t, want_tokens[i][r0:r0 + n])
+                lg, cache = m.decode_step(p, t, cache, window=window)
+            calls = sum(v["calls"] for v in
+                        dist.collective_stats().values())
+            w_spec = sharding.rank_bytes(
+                params_full, sharding.param_shardings(params_full, mesh,
+                                                      cfg), mesh)
+            c_spec = sharding.rank_bytes(
+                whole_cache, sharding.cache_shardings(
+                    whole_cache, mesh, cfg, batch_axes), mesh)
+            w_held = sharding.held_bytes(p)
+            c_held = sharding.held_bytes(cache)
+        res.check(f"tp_{arch}_{data}x{model}{tag}",
+                  err <= 1.0 and tok_ok and w_held == w_spec and
+                  c_held <= c_spec,
+                  err_over_tol=res.worst(err), tokens_equal=tok_ok,
+                  logits_block=list(lg.shape), weight_bytes=w_held,
+                  weight_bytes_spec=w_spec, cache_bytes=c_held,
+                  cache_bytes_spec=c_spec, collective_calls=calls)
+
+
+def _gather_block(x, spec):
+    """A leaf's whole value from the ranks' blocks under ``spec``."""
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            x = dist.all_gather(x, entry, dim=dim, tiled=True)
+    return x
+
+
+def check_programs_reference(res, ref):
+    """The port's per-rank prefill and serve-step programs (S1, shvs) at
+    (2, 4) on reduced f32 smollm-360m == the reference's jitted GSPMD
+    programs (``torch_dist_jax_ref.py programs``): the first tokens and
+    three serve steps' tokens exactly, the logits blocks within 1e-5
+    (abs + rel)."""
+    cfg = get_arch("smollm-360m").reduced()
+    model = Model(cfg)
+    B, S, Sc = 8, 16, 32
+    params_full = {}
+    for key in ref.files:
+        if key.startswith("p/"):
+            node = params_full
+            *path, leaf = key[2:].split("/")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = torch.from_numpy(ref[key])
+    tokens = torch.from_numpy(ref["tokens"])
+    sp = SamplingParams(**{f: torch.from_numpy(ref[f"sp_{f}"]).to(
+        torch.int32 if f == "top_k" else torch.float32)
+        for f in SAMPLING_DEFAULTS})
+    mesh = make_local_mesh(2, 4)
+    want_t, want_l = ref["ref_tokens"], ref["ref_logits"]
+    pre = steps.make_prefill_program(cfg, ShapeConfig("p", S, B, "prefill"),
+                                     mesh, device="cpu")
+    dec = steps.make_serve_step_program(
+        cfg, ShapeConfig("d", Sc, B, "decode"), mesh, device="cpu")
+    err, tok_ok = 0.0, True
+
+    def held(lg, i):
+        r0, n = dist.rows(B, ("data",))
+        cols = cfg.vocab_size // 4
+        c0 = dist.axis_index("model") * cols
+        want = torch.from_numpy(want_l[i][r0:r0 + n, c0:c0 + cols])
+        return float(torch.max(torch.abs(lg - want) /
+                               (1e-5 + 1e-5 * want.abs())))
+
+    def rows_of(cache):
+        r0, n = dist.rows(B, ("data",))
+        return {k: v.clone() for k, v in cache.items()} | \
+            {"len": cache["len"][r0:r0 + n].clone()}
+
+    with dist.use_mesh(mesh, batch_axes=pre[4], model_axes=("model",)):
+        fn, a_in, ins, _, _ = pre
+        zeros = {k: torch.zeros(v.shape, dtype=v.dtype)
+                 for k, v in a_in[2].items()}
+        p, batch, cache, spl = steps.local_inputs(
+            cfg, (params_full, {"tokens": tokens}, zeros, sp), ins, mesh)
+        lg, _ = model.prefill(p, batch, rows_of(cache))
+        err = max(err, held(lg, 0))
+        tok, cache = fn(p, batch, cache, spl)
+        tok_all = dist.all_gather(tok, "data", tiled=True)
+        tok_ok &= np.array_equal(tok_all.numpy(), want_t[0])
+        whole = {k: _gather_block(v, spec) for (k, v), spec in
+                 zip(cache.items(), ins[2].values())}
+    for k in ("k", "v"):
+        pad = whole[k].new_zeros(whole[k].shape[:2] + (Sc - S,) +
+                                 whole[k].shape[3:])
+        whole[k] = torch.cat([whole[k], pad], dim=2)
+    state = pen.update_histograms(pen.init_state(B, cfg.vocab_size, tokens),
+                                  tok_all)
+    with dist.use_mesh(mesh, batch_axes=dec[4], model_axes=("model",)):
+        fn, _, ins, _, _ = dec
+        _, cache, st, tok, spl, _ = steps.local_inputs(
+            cfg, (params_full, whole, state, tok_all, sp, 0), ins, mesh)
+        for i in range(3):
+            lg, _ = model.decode_step(p, tok, rows_of(cache))
+            err = max(err, held(lg, i + 1))
+            tok, cache, st = fn(p, cache, st, tok, spl, i + 1)
+            tok_ok &= np.array_equal(
+                dist.all_gather(tok, "data", tiled=True).numpy(),
+                want_t[i + 1])
+    res.check("programs_reference_2x4", err <= 1.0 and tok_ok,
+              err_over_tol=res.worst(err), tokens_equal=tok_ok)
+
+
+def check_stats(res):
+    """Known collectives over the model group of a (1, 2) mesh; the
+    counts and bytes ``dist.collective_stats`` keeps, for
+    ``launch/hlo_analysis.collective_stats_from``."""
+    mesh = make_local_mesh(1, 2)
+    with dist.use_mesh(mesh):
+        dist.reset_collective_stats()
+        x = torch.ones((4, 6), dtype=torch.float32)
+        dist.all_gather(x, "model", dim=0, tiled=True)        # 96 B in
+        dist.psum(x, "model")                                 # 96 B
+        dist.psum(x[:1], "model")                             # 24 B
+        dist.pmax(x, "model")                                 # 96 B
+        dist.psum_scatter(x, "model", dim=0)                  # 96 B
+        dist.all_to_all(x, "model", split_dim=0, concat_dim=1)  # 96 B
+        res.out["stats"] = dist.collective_stats()
+        res.out["group"] = dist.tp_size()
+
+
+def main(rank, world, port, ref_path, out_path, mode="distribution"):
     torch.set_num_threads(1)
     tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                              world_size=world, rank=rank)
-    ref = np.load(ref_path)
     res = Results()
-    mesh = make_local_mesh(2, 4)
-    res.out["mesh_shape"] = dict(MeshShape.of(mesh).shape)
-    with dist.use_mesh(mesh):
-        check_collectives(res)
-        check_sp_reference(res, ref, mesh)
-        check_hierarchical_reference(res, ref, mesh)
-        check_moe_reference(res, ref, mesh)
-        check_plane_vs_single(res, mesh)
-    for shape in ((2, 2), (1, 4)):
-        check_decode(res, shape)
+    if mode == "stats":
+        check_stats(res)
+    elif mode == "tp":
+        for shape in ((2, 2), (1, 4), (2, 4)):
+            check_tp(res, shape)
+        check_tp(res, (1, 4), [a for a in TP_ARCHS if a[0] == "zamba2-1.2b"],
+                 batch_axes=None, tag="_replicated")
+        check_programs_reference(res, np.load(ref_path))
+    else:
+        ref = np.load(ref_path)
+        mesh = make_local_mesh(2, 4)
+        res.out["mesh_shape"] = dict(MeshShape.of(mesh).shape)
+        with dist.use_mesh(mesh):
+            check_collectives(res)
+            check_sp_reference(res, ref, mesh)
+            check_hierarchical_reference(res, ref, mesh)
+            check_moe_reference(res, ref, mesh)
+            check_plane_vs_single(res, mesh)
+        for shape in ((2, 2), (1, 4)):
+            check_decode(res, shape)
     res.out["staged"] = list(dist.staged_collectives())
     tdist.barrier()
     if rank == 0:
@@ -365,4 +598,4 @@ def main(rank, world, port, ref_path, out_path):
 
 if __name__ == "__main__":
     main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
-         sys.argv[5])
+         sys.argv[5], *sys.argv[6:])
