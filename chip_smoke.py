@@ -215,11 +215,38 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (``launch/hlo_analysis``, H100 SXM5 constants) beside it. The ranks'
    logs go to ``chiprun_out/tp_rank*.log``. Four ranks share one card: no
    time here is a time across cards.
+13. the train-step program under a mesh: (a) one step of
+   ``launch/steps.make_train_step_program`` of full-width smollm-360m
+   (bf16, B = 8, S = 128, phase 10 (a)'s batch) on a (1, 1) NCCL mesh
+   equals the program without a mesh bit for bit (loss, grad norm, every
+   parameter and moment); (b) four gloo ranks on this card at (1, 4) and
+   (2, 2), full width and depth, three steps from one init and the same
+   seeded batches against the single process on this card, and
+   granite-moe-1b-a400m (8 of 24 layers) at (1, 4) through the EP MoE.
+   Per rank: the loss and grad norm and their relative errors, the
+   parameter blocks after step 1 (within 2·lr plus one bf16 rounding),
+   the weight and AdamW-moment bytes against ``sharding.rank_bytes``, the
+   step's ms, its collectives' count and ms by phase (forward, backward,
+   remat's re-run, the gradient sum, the norm, the metrics;
+   ``dist.phase_stats`` with ``dist.set_timing``), peak memory; the ranks'
+   logs go to ``chiprun_out/mt_rank*.log``; (c) ``python -m
+   repro_torch.launch.dryrun --device cuda`` (the programs traced as rank
+   0 of 512 on fake CUDA tensors) for smollm-360m's train_4k, decode_32k
+   and long_500k on 16×16 and decode_32k on 2×16×16, granite's train_4k
+   and rwkv6-3b's decode_32k (40 heads over 16 ranks), side by side,
+   started first at the lowest CPU priority (``nice`` 19) and run beside
+   (a), (b) and (d) on the cores those leave idle, every record ``ok``
+   (their logs go to
+   ``chiprun_out/mt_dryrun_*.log``); then a fake CUDA tensor launches no
+   kernel and a real one launches each once; (d) each
+   ``examples/torch_*.py`` on the card at small arguments (the train
+   example 20 steps of 2 rows of 32 tokens, so its warmup moves the loss),
+   in this process, with its decision kernels' launches.
 
 ``python3 chip_smoke.py --families-only`` builds the kernels and runs
 phases 3 and 9 alone, printing one JSON line. ``--train-only`` runs
-phase 10 alone the same way, ``--dist-only`` phase 11 and ``--tp-only``
-phase 12.
+phase 10 alone the same way, ``--dist-only`` phase 11, ``--tp-only``
+phase 12 and ``--mesh-train-only`` phase 13.
 
 ``python3 chip_smoke.py --host-only`` builds the kernels and runs phase 5's
 ``shvs`` rows on the device and in the host pool, in turns, and the pool
@@ -3734,6 +3761,523 @@ def tp_only(dev, card):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the train-step program under a mesh (the collectives' adjoints,
+# the vocab-parallel loss, the norm over the blocks), the dry-run's trace
+# on fake CUDA tensors, and the examples
+# ---------------------------------------------------------------------------
+MT_B, MT_S, MT_STEPS = 8, 128, 3         # phase 10 (a)'s batch, 3 steps
+# (arch, layers or None, meshes): smollm-360m at full width and depth on
+# both meshes; granite (8 of 24 layers) at (1, 4) through the EP MoE
+MT_RUNS = (("smollm-360m", None, ((1, 4), (2, 2))),
+           ("granite-moe-1b-a400m", 8, ((1, 4),)))
+# the train step's tolerances in bf16 against the single process on this
+# card: the loss (an f32 mean over 1,024 tokens) and the grad norm
+# relative; the parameter blocks after step 1 within 2·lr plus one bf16
+# rounding of the parameter (the first AdamW step moves an element by ±lr
+# by its gradient's sign: a gradient that bf16's partial sums in another
+# order leave near 0 may flip it, 2·lr, and the bf16 result rounds by up
+# to 2^-8 of itself either way)
+MT_LOSS_RTOL, MT_NORM_RTOL = 1e-3, 1e-2
+# the dry-run's combinations on 16×16 ((arch, shape, multi-pod)); the
+# fourth shape, prefill_32k, is left out: its trace runs ~1.3 M ops of
+# attend_chunked at S = 32768 (see ROADMAP)
+MT_DRYRUN = (("smollm-360m", "train_4k", False),
+             ("smollm-360m", "decode_32k", False),
+             ("smollm-360m", "long_500k", False),
+             ("smollm-360m", "decode_32k", True),
+             ("granite-moe-1b-a400m", "train_4k", False),
+             ("rwkv6-3b", "decode_32k", False))
+# each example at small arguments (the train example's checkpoint goes to
+# the phase's temporary directory; 20 steps, so that its warmup moves the
+# loss down, which the example asserts)
+MT_EXAMPLES = (("torch_quickstart", [], "fast-path acceptance="),
+               ("torch_serve_continuous_batching",
+                ["--requests", "4", "--max-new", "4"], "shvs"),
+               ("torch_autotune_serving", ["--requests", "4",
+                                           "--max-new", "16"],
+                "served 4 requests"),
+               ("torch_shvs_sizing", ["--iters", "2"],
+                "H* (first-order condition)"),
+               ("torch_train_100m", ["--steps", "20", "--batch", "2",
+                                     "--seq-len", "32"],
+                "checkpoint round-trip ok at step 20"))
+
+
+def mt_batches(cfg):
+    """MT_STEPS seeded batches of tokens and labels (B = 8, S = 128)."""
+    import numpy as np
+    import torch
+    rs = np.random.default_rng(13)
+    return [{k: torch.from_numpy(rs.integers(0, cfg.vocab_size, (
+        MT_B, MT_S)).astype(np.int32)) for k in ("tokens", "labels")}
+        for _ in range(MT_STEPS)]
+
+
+def mt_program(cfg, mesh, dev):
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import steps
+    return steps.make_train_step_program(
+        cfg, ShapeConfig("mt_train", MT_S, MT_B, "train"), mesh, device=dev)
+
+
+def mt_one_rank(dev, card):
+    """Phase 13 (a): one step of the train program of full-width
+    smollm-360m (B = 8, S = 128) under a (1, 1) NCCL mesh equals the
+    program without a mesh bit for bit: loss, grad norm, and every
+    parameter and AdamW moment after the step."""
+    import socket
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import dist
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import adamw_init
+    cfg = tp_config("smollm-360m", None)
+    full = Model(cfg).init(seed=0, device=dev)
+    batch = to_dev(mt_batches(cfg)[0], dev)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=1, rank=0, device_id=dev)
+
+    def run(mesh):
+        fn, _, ins, _, baxes = mt_program(cfg, mesh, dev)
+        with dist.use_mesh(mesh, batch_axes=baxes):
+            p, _, b = steps.local_inputs(cfg, (full, None, batch), ins, mesh)
+            q, opt, met = fn(p, adamw_init(p), b)
+            sync(dev)
+        return q, opt, {k: float(v) for k, v in met.items()}
+    try:
+        want = run(None)
+        got = run(make_local_mesh(1, 1))
+    finally:
+        tdist.destroy_process_group()
+    assert got[2] == want[2], (got[2], want[2])
+    assert leaves_equal(got[0], want[0]) and leaves_equal(got[1], want[1])
+    print(f"phase 13 (a) (1, 1) NCCL mesh: smollm-360m's train program (B "
+          f"= {MT_B}, S = {MT_S}) equals the program without a mesh bit for "
+          f"bit: loss {got[2]['loss']:.6f}, grad norm "
+          f"{got[2]['grad_norm']:.6f}, every parameter and moment after the "
+          f"step [{card}]")
+    return {"equal": True, "loss": got[2]["loss"],
+            "grad_norm": got[2]["grad_norm"]}
+
+
+def mt_reference(dev, work):
+    """The single-process side of phase 13 (b): for each run, MT_STEPS
+    train-program steps of the unsplit model on this card from the seeded
+    init: each step's loss and grad norm, and the parameters after step 1
+    (on the host), written to ``work`` for the ranks."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import adamw_init
+    out = {}
+    for arch, layers, _ in MT_RUNS:
+        cfg = tp_config(arch, layers)
+        fn = mt_program(cfg, None, dev)[0]
+        p = Model(cfg).init(seed=0, device=dev)
+        opt = adamw_init(p)
+        mets, after1 = [], None
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = []
+        for i, b in enumerate(mt_batches(cfg)):
+            sync(dev)
+            t0 = time.perf_counter()
+            p, opt, met = fn(p, opt, to_dev(b, dev))
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            mets.append({k: float(v) for k, v in met.items()})
+            if i == 0:
+                after1 = {k: v.cpu() for k, v in _leaves_by_path(p).items()}
+        out[arch] = {"metrics": mets, "after1": after1, "step_ms": ms,
+                     "peak": torch.cuda.max_memory_allocated(dev)}
+        del p, opt
+        torch.cuda.empty_cache()
+    torch.save(out, work / "mt_ref.pt")
+    return {a: {"metrics": r["metrics"], "step_ms": r["step_ms"],
+                "peak": r["peak"]} for a, r in out.items()}
+
+
+def _leaves_by_path(tree, prefix=""):
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(_leaves_by_path(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v
+    return out
+
+
+def mt_rank_main(args):
+    """One of phase 13's four ranks: each run of MT_RUNS on its meshes,
+    MT_STEPS steps of the train program on the rank's blocks, timed, its
+    collectives timed and counted by phase; rank 0 writes
+    ``mt_ranks.json``."""
+    import math
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import dist
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import adamw_init
+    work = Path(args.dist_dir)
+    dev = torch.device(args.dist_device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rank = args.mt_rank
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                             f"{args.dist_port}", world_size=args.dist_world,
+                             rank=rank)
+    ref = torch.load(work / "mt_ref.pt")
+    out = {}
+    for arch, layers, meshes in MT_RUNS:
+        cfg = tp_config(arch, layers)
+        R = ref[arch]
+        full = Model(cfg).init(seed=0, device=dev)
+        batches = mt_batches(cfg)
+        for shape in meshes:
+            mesh = make_local_mesh(*shape)
+            tag = f"{arch}_{shape[0]}x{shape[1]}"
+            fn, a_in, ins, _, baxes = mt_program(cfg, mesh, dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            recs, phases = [], {}
+            ops.reset_launch_counts()
+            with dist.use_mesh(mesh, batch_axes=baxes):
+                p, _, _ = steps.local_inputs(cfg, (full, None, None), ins,
+                                             mesh)
+                opt = adamw_init(p)
+                for i, b in enumerate(batches):
+                    _, _, bl = steps.local_inputs(
+                        cfg, (None, None, to_dev(b, dev)), ins, mesh)
+                    sync(dev)
+                    dist.reset_collective_stats()
+                    dist.set_timing(True)
+                    t0 = time.perf_counter()
+                    p, opt, met = fn(p, opt, bl)
+                    sync(dev)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    dist.set_timing(False)
+                    for ph, st in dist.phase_stats().items():
+                        acc = phases.setdefault(ph, {"calls": 0,
+                                                     "seconds": 0.0})
+                        acc["calls"] += sum(v["calls"] for v in st.values())
+                        acc["seconds"] += sum(v["seconds"]
+                                              for v in st.values())
+                    want = R["metrics"][i]
+                    rel = lambda k: abs(float(met[k]) - want[k]) / \
+                        abs(want[k])
+                    recs.append({"ms": ms, "loss": float(met["loss"]),
+                                 "grad_norm": float(met["grad_norm"]),
+                                 "loss_rel_err": rel("loss"),
+                                 "grad_norm_rel_err": rel("grad_norm")})
+                    if i == 0:
+                        lr = float(met["lr"])
+                        specs = _leaves_by_path(ins[0])
+                        p_err, p_off = 0.0, 0
+                        for k, mine in _leaves_by_path(p).items():
+                            blk = sharding.local_shard(
+                                R["after1"][k], specs[k], mesh).to(dev)
+                            d = (mine.float() - blk.float()).abs()
+                            p_err = max(p_err, float(d.max()) / lr)
+                            # beyond 2·lr plus one bf16 rounding of each
+                            p_off += int((d > 2 * lr + 2 ** -7 *
+                                          blk.float().abs()).sum())
+                w_held = sharding.held_bytes(p)
+                w_spec = sharding.rank_bytes(a_in[0], ins[0], mesh)
+                m_held = sharding.held_bytes({"mu": opt.mu, "nu": opt.nu})
+                m_spec = sharding.rank_bytes(
+                    {"mu": a_in[1].mu, "nu": a_in[1].nu},
+                    {"mu": ins[1].mu, "nu": ins[1].nu}, mesh)
+            finite = all(math.isfinite(r["loss"]) and
+                         math.isfinite(r["grad_norm"]) for r in recs)
+            rec = {
+                "ok": finite and p_off == 0 and w_held == w_spec and
+                m_held == m_spec and
+                all(r["loss_rel_err"] <= MT_LOSS_RTOL and
+                    r["grad_norm_rel_err"] <= MT_NORM_RTOL for r in recs),
+                "steps": recs, "params_max_err_over_lr": p_err,
+                "params_off": p_off, "weight_bytes": w_held,
+                "weight_bytes_spec": w_spec, "moment_bytes": m_held,
+                "moment_bytes_spec": m_spec,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+                "collectives_a_step": {
+                    ph: {"calls": v["calls"] / MT_STEPS,
+                         "ms": 1e3 * v["seconds"] / MT_STEPS}
+                    for ph, v in phases.items()},
+                "launches": ops.launch_counts()}
+            out[tag] = {rank: rec}
+            print(f"{tag}: steps {[round(r['ms'], 1) for r in recs]} ms, "
+                  f"loss err {[r['loss_rel_err'] for r in recs]}, grad norm "
+                  f"err {[r['grad_norm_rel_err'] for r in recs]}, params "
+                  f"after step 1 max err {p_err:.3f} lr ({p_off} off), "
+                  f"weights {w_held} B (spec {w_spec}), moments {m_held} B "
+                  f"(spec {m_spec}), peak {rec['max_memory_allocated']} B, "
+                  f"collectives a step {rec['collectives_a_step']}, ok "
+                  f"{rec['ok']}", flush=True)
+        del full
+        torch.cuda.empty_cache()
+    out["staged"] = list(dist.staged_collectives())
+    gathered = [None] * args.dist_world
+    tdist.all_gather_object(gathered, out)
+    if rank == 0:
+        merged = {"staged": sorted({s for o in gathered for s in o["staged"]})}
+        for o in gathered:
+            for tag, per in o.items():
+                if tag != "staged":
+                    merged.setdefault(tag, {}).update(
+                        {str(k): v for k, v in per.items()})
+        (work / "mt_ranks.json").write_text(json.dumps(merged))
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def mt_four_ranks(dev, work):
+    """Phase 13 (b): four ranks spawned on this card over gloo."""
+    import os
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env["OMP_NUM_THREADS"] = "2"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mt-rank", str(r),
+         "--dist-world", "4", "--dist-port", str(port), "--dist-dir",
+         str(work), "--dist-device", str(dev)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logdir = ROOT / "chiprun_out"
+    logdir.mkdir(exist_ok=True)
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        (logdir / f"mt_rank{r}.log").write_text(log)
+        if p.returncode != 0:
+            print(log[-6000:])
+        assert p.returncode == 0, f"rank {r} exited with {p.returncode}"
+    return json.loads((work / "mt_ranks.json").read_text())
+
+
+def mt_dryrun_start(work, device="cuda"):
+    """Phase 13 (c): ``python -m repro_torch.launch.dryrun --device cuda``
+    once for each of MT_DRYRUN, side by side, at the lowest CPU priority
+    (``nice`` 19: the traces are host work on fake tensors, run on the
+    cores (a) and (b) leave idle); returns the processes."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["OMP_NUM_THREADS"] = "1"
+    procs = []
+    for i, (arch, shape, multi) in enumerate(MT_DRYRUN):
+        log = open(work / f"dryrun_{i}.log", "w")
+        procs.append((log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "multi" if multi else
+             "single", "--device", device, "--out",
+             str(work / f"dryrun_{i}.jsonl")], env=env, cwd=str(ROOT),
+            stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(19))))
+    return procs
+
+
+def mt_dryrun_finish(procs, work, card, device="cuda"):
+    """Wait for the dry-runs; every record ``ok`` and traced on
+    ``device``."""
+    recs = []
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    for i, (log, p) in enumerate(procs):
+        try:
+            rc = p.wait(timeout=900)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        text = (work / f"dryrun_{i}.log").read_text()
+        (ROOT / "chiprun_out" / f"mt_dryrun_{i}.log").write_text(text)
+        if rc != 0 or "dry-run complete: 1/1 ok" not in text:
+            print(text[-6000:])
+        assert rc == 0, (MT_DRYRUN[i], rc)
+        rec = json.loads((work / f"dryrun_{i}.jsonl").read_text()
+                         .splitlines()[-1])
+        assert rec["status"] == "ok" and rec["device"] == device, rec
+        recs.append(rec)
+        print(f"phase 13 (c) dry-run {rec['arch']} {rec['shape']} "
+              f"{rec['mesh']} on fake CUDA tensors: ok, traced in "
+              f"{rec['lower_s']:.1f} s ({rec['traced_ops']} ops), dot FLOPs "
+              f"· chips {rec['parsed_dot_flops']:.3e} against model FLOPs "
+              f"{rec['model_flops']:.3e}, collectives "
+              f"{rec['collective_counts']}, bytes a device "
+              f"{rec['bytes_per_device']:.3e}, bottleneck "
+              f"{rec['bottleneck']} [{card}]")
+    return recs
+
+
+def mt_kernel_paths(card):
+    """Phase 13 (c), the kernels' real path after the dry-run's: a fake
+    CUDA tensor launches nothing, a real one launches each kernel once
+    (``ops.launch_counts`` rises by one each)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.kernels import ops
+    B, V = 4, 4096
+    dev = torch.device("cuda", 0)
+
+    def call_all():
+        # greedy-free unfiltered rows, no penalties: inside every kernel's
+        # contract (top_p in (0, 1], min_p in [0, 1))
+        full = lambda shape, v, dt=torch.float32: torch.full(
+            shape, v, dtype=dt, device=dev)
+        z = torch.arange(B * V, dtype=torch.float32, device=dev).reshape(
+            B, V).remainder(97.0) / 10.0
+        c = full((B, V), 0, torch.int32)
+        hot = torch.arange(V, device=dev) < 256
+        one, zero = full((B,), 1.0), full((B,), 0.0)
+        ops.fused_penalty_scale(z, c, c, one, zero, zero, one)
+        ops.fused_shvs_masses(z, hot)
+        ops.fused_sample(z, c, c, SamplingParams(
+            one, full((B,), 0, torch.int32), one, zero, one, zero, zero),
+            full((B,), 0.5), hot, k_cap=64)
+        ops.fused_gumbel_argmax(z, 7)
+    ops.reset_launch_counts()
+    with FakeTensorMode():
+        call_all()
+    fake = ops.launch_counts()
+    call_all()
+    sync(dev)
+    real = ops.launch_counts()
+    assert all(v == 0 for v in fake.values()), fake
+    assert all(v == 1 for v in real.values()), real
+    print(f"phase 13 (c) fake CUDA tensors launch nothing ({fake}); real "
+          f"ones launch each kernel once ({real}) [{card}]")
+    return {"fake_launches": fake, "real_launches": real}
+
+
+def mt_examples(work, card, device="cuda"):
+    """Phase 13 (d): each ``examples/torch_*.py`` on the card, in this
+    process, at its smallest arguments, the launch counters set to 0 just
+    before each and read just after."""
+    import contextlib as cl
+    import importlib.util
+    import io
+    import torch
+    from repro_torch.kernels import ops
+    out = {}
+    for name, args, expect in MT_EXAMPLES:
+        if name == "torch_train_100m":
+            args = args + ["--ckpt", str(work / "ckpt_100m")]
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(buf):
+            mod.main(["--device", device, *args])
+        sync(torch.device(device))
+        dt = time.perf_counter() - t0
+        text = buf.getvalue()
+        assert expect in text, (name, text[-2000:])
+        out[name] = {"seconds": dt, "launches": ops.launch_counts(),
+                     "last_line": text.strip().splitlines()[-1]}
+        print(f"phase 13 (d) examples/{name}.py {' '.join(args)} on the "
+              f"card: {dt:.1f} s, launches {out[name]['launches']}; "
+              f"\"{out[name]['last_line']}\" [{card}]")
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_phase(dev, card):
+    """Phase 13: (c) the dry-runs on fake CUDA tensors, started first at
+    the lowest CPU priority and run beside (a) the one-rank NCCL train
+    program, (b) four gloo ranks on this card, each rank's step held to
+    the single process's, and (d) the examples on the card."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mt_"))
+    procs = mt_dryrun_start(work)
+    try:
+        out = {"one_rank_nccl": mt_one_rank(dev, card)}
+        out["single_process"] = mt_reference(dev, work)
+        ranks = mt_four_ranks(dev, work)
+        out["examples"] = mt_examples(work, card)
+        t_c = time.perf_counter()
+        out["dryrun"] = mt_dryrun_finish(procs, work, card)
+        out["dryrun_wait_s"] = time.perf_counter() - t_c
+        out["kernel_paths"] = mt_kernel_paths(card)
+    finally:
+        for log, p in procs:          # stopped where a step above failed
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(work, ignore_errors=True)
+    for arch, layers, meshes in MT_RUNS:
+        sp = out["single_process"][arch]
+        for shape in meshes:
+            tag = f"{arch}_{shape[0]}x{shape[1]}"
+            per = ranks[tag]
+            assert len(per) == 4, (tag, sorted(per))
+            for r, rec in sorted(per.items()):
+                assert rec["ok"], (tag, r, rec)
+            r0 = per["0"]
+            depth = f"{layers} of {tp_config(arch, None).num_layers} " \
+                "layers" if layers else "full depth"
+            col = lambda f: [f(per[str(r)]) for r in range(4)]
+            print(
+                f"phase 13 (b) {tag} ({depth}, bf16, B = {MT_B}, S = "
+                f"{MT_S}, {MT_STEPS} steps from one init and the same "
+                f"batches; single process on this card: losses "
+                f"{[round(m['loss'], 4) for m in sp['metrics']]}, grad norms "
+                f"{[round(m['grad_norm'], 4) for m in sp['metrics']]}, step "
+                f"{[round(x, 1) for x in sp['step_ms']]} ms): per rank loss "
+                f"rel err max "
+                f"{col(lambda x: max(s['loss_rel_err'] for s in x['steps']))}"
+                f", grad norm rel err max "
+                f"{col(lambda x: max(s['grad_norm_rel_err'] for s in x['steps']))}"
+                f", parameter blocks after step 1 within "
+                f"{col(lambda x: round(x['params_max_err_over_lr'], 3))} lr; "
+                f"weight bytes {col(lambda x: x['weight_bytes'])} = the "
+                f"spec's, AdamW moment bytes "
+                f"{col(lambda x: x['moment_bytes'])} = the spec's; step ms "
+                f"{col(lambda x: [round(s['ms'], 1) for s in x['steps']])}; "
+                f"collectives a step (calls, ms) "
+                f"{ {ph: (v['calls'], round(v['ms'], 1)) for ph, v in r0['collectives_a_step'].items()} }"
+                f" (rank 0); peak "
+                f"{col(lambda x: x['max_memory_allocated'])} B [{card}]")
+    out["four_ranks"] = ranks
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 13 took {out['seconds']:.1f} s (of it "
+          f"{out['dryrun_wait_s']:.1f} s waiting for (c)'s dry-runs after "
+          f"(a), (b) and (d))")
+    return out
+
+
+def mesh_train_only(dev, card):
+    """``--mesh-train-only``: phase 13 alone; prints one JSON line."""
+    print(json.dumps({"mesh_train_only": {
+        "card": card, "runs": mesh_train_phase(dev, card)}}))
+    return 0
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3957,7 +4501,14 @@ def main() -> int:
                          "parallel serving: launch/steps.py's programs on a "
                          "one-rank NCCL mesh and four gloo ranks on this "
                          "card) only; prints one JSON line")
+    ap.add_argument("--mesh-train-only", action="store_true",
+                    help="build the kernels and run phase 13 (the train "
+                         "program on a one-rank NCCL mesh and four gloo "
+                         "ranks on this card, the dry-run on fake CUDA "
+                         "tensors, the examples) only; prints one JSON line")
     ap.add_argument("--dist-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mt-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -3988,6 +4539,8 @@ def main() -> int:
         return dist_rank_main(args)
     if args.tp_rank is not None:            # one of phase 12's ranks
         return tp_rank_main(args)
+    if args.mt_rank is not None:            # one of phase 13's ranks
+        return mt_rank_main(args)
     from repro_torch.kernels import _build, fused_kernel, gumbel_kernel, \
         ops, penalty_kernel, shvs_kernel
     dev = torch.device("cuda", 0)
@@ -4039,6 +4592,8 @@ def main() -> int:
         return dist_only(dev, card)
     if args.tp_only:
         return tp_only(dev, card)
+    if args.mesh_train_only:
+        return mesh_train_only(dev, card)
 
     t_phase = time.perf_counter()
 
@@ -4070,6 +4625,7 @@ def main() -> int:
     phase_done(10)
     dist_runs = dist_phase(dev, card)          # prints its own seconds
     tp_runs = tp_phase(dev, card)              # prints its own seconds
+    mt_runs = mesh_train_phase(dev, card)      # prints its own seconds
 
     launch_of = {"penalty_scale": counts["shvs"]["penalty_scale"],
                  "shvs_masses": counts["shvs"]["shvs_masses"],
@@ -4096,7 +4652,7 @@ def main() -> int:
               "pipeline": pipeline_runs, "migration": migration_runs,
               "families": family_runs, "family_launches": family_counts,
               "training": train_runs, "distribution": dist_runs,
-              "tensor_parallel": tp_runs,
+              "tensor_parallel": tp_runs, "mesh_train": mt_runs,
               "fused_large_k": large_k,
               "gumbel_sass": sass,
               "gumbel_issue_floor": floor}

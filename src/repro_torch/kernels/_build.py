@@ -158,6 +158,16 @@ def ptr(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
     return t.data_ptr()
 
 
+def shape_only(t: torch.Tensor) -> bool:
+    """Whether ``t`` holds shapes and no data: a fake tensor (a trace under
+    ``FakeTensorMode``, as the dry-run runs its programs) or a tensor on
+    the meta device. A wrapper given one returns empty outputs of the
+    kernel's shapes and dtypes and launches nothing: there is nothing to
+    compute. A real tensor never takes that path."""
+    from torch._subclasses.fake_tensor import is_fake
+    return t.device.type == "meta" or is_fake(t)
+
+
 def cuda_device(t: torch.Tensor) -> torch.device:
     if not t.is_cuda:
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {t.device}")

@@ -110,6 +110,11 @@ def fused_sample(logits, counts_p, counts_o, repetition, presence, frequency,
     alpha f32, kept int32), each (B,).
     """
     global launches
+    if _build.shape_only(logits):
+        B = logits.shape[0]
+        return tuple(torch.empty((B,), dtype=dt, device=logits.device)
+                     for dt in (torch.int32, torch.bool, torch.float32,
+                                torch.int32))
     dev = _build.cuda_device(logits)
     B, V = logits.shape
     Vp = -(-V // block_v) * block_v

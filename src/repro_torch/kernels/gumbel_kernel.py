@@ -67,6 +67,8 @@ def gumbel_argmax(z, seed: int, row0: int = 0):
     seed; ``row0`` the batch row of z's first row (the hash's b is row0
     plus the operand row). Returns tokens (B,) int32."""
     global launches, _FN
+    if _build.shape_only(z):
+        return torch.empty((z.shape[0],), dtype=torch.int32, device=z.device)
     dev = _build.cuda_device(z)
     B, V = z.shape
     zp = _build.ptr(z, "z", torch.float32, (B, V), dev)

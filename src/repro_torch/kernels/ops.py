@@ -3,7 +3,9 @@
 A tensor on the CPU gets the plain version (``kernels/ref.py``); any other
 tensor gets the kernel, which raises unless it is a CUDA tensor it can
 launch on. There is no fallback: nothing on a card runs a plain version in
-place of a kernel.
+place of a kernel. A tensor with no data (fake, or on the meta device: a
+dry-run's trace) gets empty outputs of the kernel's shapes from the
+kernel's wrapper, which launches nothing (``_build.shape_only``).
 """
 from __future__ import annotations
 

@@ -28,6 +28,8 @@ def penalty_scale(logits, counts_p, counts_o, repetition, presence,
                   frequency, temperature) -> torch.Tensor:
     """logits (B, V) f32; counts (B, V) int32; params (B,) f32 → (B, V)."""
     global launches
+    if _build.shape_only(logits):
+        return torch.empty_like(logits)
     dev = _build.cuda_device(logits)
     B, V = logits.shape
     f32, i32 = torch.float32, torch.int32

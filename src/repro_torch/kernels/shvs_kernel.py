@@ -48,6 +48,9 @@ def shvs_masses(z, hot_mask):
     """z (B, V) f32; hot_mask (V,) bool → (m, s_hot, s_tail, tail_max),
     each (B,) f32."""
     global launches
+    if _build.shape_only(z):
+        return tuple(torch.empty((4, z.shape[0]), dtype=torch.float32,
+                                 device=z.device))
     dev = _build.cuda_device(z)
     B, V = z.shape
     outs = torch.empty((4, B), dtype=torch.float32, device=dev)

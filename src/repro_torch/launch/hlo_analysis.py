@@ -1,12 +1,15 @@
 """Roofline terms of a program: the analytic traffic and FLOP models, the
 roofline's three terms and the collective statistics they read.
 
-This is the analytic half of the reference's ``launch/hlo_analysis.py``.
-Its other half — ``_shape_bytes``, ``parse_collectives`` and
-``analyze_compiled`` — reads the HLO text of a compiled XLA program,
-which a torch program has none of; its twin comes with the dry-run
-(ROADMAP item 7e). Here :class:`CollectiveStats` is filled from what the
-collectives of ``models/dist.py`` counted (:func:`collective_stats_from`).
+The reference's ``launch/hlo_analysis.py`` reads the rest from the HLO
+text of a compiled XLA program (``_shape_bytes``, ``parse_collectives``,
+``analyze_compiled``), which a torch program has none of: here
+:func:`analyze_program`, the twin of ``analyze_compiled``, reads a trace
+of one rank's program on fake tensors (``launch/hlo_parse.py``), and
+:class:`CollectiveStats` is filled from what the collectives of
+``models/dist.py`` counted (:func:`collective_stats_from`). No port code
+reads HLO text, so ``_shape_bytes`` and ``parse_collectives`` have no
+twin.
 
 Byte conventions of the collective term, as in the reference (bytes a
 device receives):
@@ -26,6 +29,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, Optional
+
+from repro_torch.models.dist import received_bytes
 
 # H100 SXM5 constants (per card)
 PEAK_FLOPS = 989e12          # bf16, dense
@@ -60,16 +65,8 @@ def collective_stats_from(stats: Dict[str, dict],
     out = CollectiveStats()
     for name, st in stats.items():
         kind = _KIND[name]
-        n = group_size.get(name, 1)
-        b = int(st["bytes"])
-        if kind == "all-gather":
-            moved = (n - 1) * b
-        elif kind == "all-reduce":
-            moved = 2 * b
-        elif kind == "reduce-scatter":
-            moved = b - b // max(n, 1)
-        else:
-            moved = b
+        moved = received_bytes(name, int(st["bytes"]),
+                               group_size.get(name, 1))
         out.bytes_by_kind[kind] = out.bytes_by_kind.get(kind, 0) + moved
         out.count_by_kind[kind] = (out.count_by_kind.get(kind, 0)
                                    + int(st["calls"]))
@@ -194,3 +191,51 @@ def model_flops_estimate(cfg, shape) -> float:
     if shape.kind == "prefill":
         return 2.0 * n_active * shape.global_batch * shape.seq_len
     return 2.0 * n_active * shape.global_batch   # one decode token per seq
+
+
+def analyze_program(name: str, fn, args, chips: int, cfg, shape) -> Roofline:
+    """Roofline terms of one rank's program ``fn(*args)``, traced on fake
+    tensors (call it under ``FakeTensorMode`` and the program's mesh),
+    combined as the reference's ``analyze_compiled`` combines the compiled
+    program's:
+
+    * FLOPs: ``max(dot FLOPs · chips, model_flops_estimate)`` — the
+      trace's dot FLOPs are the rank's, so times the chips the global;
+    * bytes: :func:`analytic_memory_bytes`, with the trace's fusion-blind
+      traffic · chips kept as its upper bound;
+    * bytes per device: the rank's arguments + outputs + the trace's peak
+      above its arguments (the compiled memory analysis's argument, output
+      and temp sizes).
+
+    ``raw_cost_flops`` and ``raw_cost_bytes``, which the reference takes
+    from XLA's loop-blind cost analysis, are the trace's own counts for
+    one rank here (its dot FLOPs and traffic bytes): a trace runs every
+    loop, so nothing is left uncounted. Returns the :class:`Roofline`;
+    its ``trace`` attribute holds the ``hlo_parse.ProgramStats``."""
+    from repro_torch.launch.hlo_parse import ProgramStats
+    trace = ProgramStats(fn, *args)
+    parsed = trace.totals()
+    stats = CollectiveStats(
+        bytes_by_kind={k: int(v * chips) for k, v in
+                       parsed["collective_bytes_by_kind"].items()},
+        count_by_kind={k: int(v) for k, v in
+                       parsed["collective_counts"].items()})
+    mflops = model_flops_estimate(cfg, shape)
+    flops = max(parsed["dot_flops"] * chips, mflops)
+    temp = max(trace.peak_bytes - trace.argument_bytes, 0.0)
+    roof = Roofline(name=name, chips=chips, hlo_flops=flops,
+                    hlo_bytes=analytic_memory_bytes(cfg, shape),
+                    collective_bytes=float(stats.total_bytes),
+                    model_flops=mflops,
+                    bytes_per_device=trace.argument_bytes +
+                    trace.output_bytes + temp,
+                    collectives=stats)
+    roof.raw_cost_flops = parsed["dot_flops"]
+    roof.raw_cost_bytes = parsed["traffic_bytes"]
+    roof.parsed_traffic_upper = parsed["traffic_bytes"] * chips
+    roof.parsed_dot_flops = parsed["dot_flops"] * chips
+    roof.memory_analysis = {"argument_size_in_bytes": trace.argument_bytes,
+                            "output_size_in_bytes": trace.output_bytes,
+                            "temp_size_in_bytes": temp}
+    roof.trace = trace
+    return roof

@@ -17,14 +17,17 @@ dtypes, nothing allocated); the specs are the reference's, from
 ``launch/sharding.py``. ``mesh`` may be None (one rank, no mesh).
 
 Where a spec leaves a leaf whole but the rank's program needs less of it,
-the rank holds less: RWKV-6's WKV state holds only the heads of the rank's
-time mix (``models/transformer.init_cache``). The per-sequence ``len`` of a
-cache is replicated by its spec, so a program reads its rows of it and
-returns it whole.
+the rank holds less: RWKV-6's WKV state holds only the heads (or the
+value columns) of the rank's time mix (``models/transformer.init_cache``).
+The per-sequence ``len`` of a cache is replicated by its spec, so a
+program reads its rows of it and returns it whole.
 
-The train program runs without a mesh or on a mesh of one rank; under a
-larger mesh it raises (the gradients through the model axes' collectives
-are ROADMAP item 7c's train-step half).
+The train program's ``fn`` is one rank's AdamW step on its blocks of the
+parameters and moments and its rows of the batch
+(``training/train_loop.make_train_step``): the vocab-parallel loss, the
+gradient through the collectives' adjoints, each leaf's gradient summed
+over the axes its spec does not split, and the clip norm over the
+blocks. Its metrics come out replicated, the same on every rank.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import dist
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import kv_slots, rwkv_heads_local
+from repro_torch.models.transformer import kv_slots, rwkv_state_local
 from repro_torch.training.optimizer import adamw_init
 from repro_torch.training.train_loop import make_train_step
 
@@ -124,11 +127,6 @@ def _whole_len(cache, before, lens):
 def make_train_step_program(cfg: ModelConfig, shape: ShapeConfig, mesh,
                             train_cfg: TrainConfig = TrainConfig(),
                             device="cuda"):
-    if mesh is not None and MeshShape.of(mesh).size > 1:
-        raise NotImplementedError(
-            "the train-step program under a mesh of more than one rank "
-            "(gradients through the model axes' collectives): ROADMAP "
-            "item 7c")
     cfg = model_for_shape(cfg, shape)
     model = Model(cfg)
     m = _mesh(mesh)
@@ -256,7 +254,8 @@ def local_inputs(cfg: ModelConfig, inputs, in_specs, mesh=None):
     the meta inputs' layout) under its ``in_specs``, run under the
     program's ``dist.use_mesh``: each leaf cut by its spec (the rank at
     ``mesh``'s coordinate), a cache cut further where the rank's program
-    holds less (RWKV-6's state: the heads of its time mix). Raises where a
+    holds less (RWKV-6's state: the heads or value columns of its time
+    mix). Raises where a
     K/V cache's block could not be told from a whole cache
     (``transformer.kv_slots``). Without a mesh the inputs come back as
     they are."""
@@ -269,8 +268,9 @@ def local_inputs(cfg: ModelConfig, inputs, in_specs, mesh=None):
                 kv_slots(cache[name].shape[2])
     out = shd.local_tree(list(inputs), list(in_specs), mesh)
     for cache in caches(out):
-        if cfg.family == "ssm" and cache["ssm"].shape[2] != \
-                rwkv_heads_local(cfg):
-            cache["ssm"] = dist.model_block(cache["ssm"], 2,
-                                            rwkv_heads_local(cfg)).contiguous()
+        if cfg.family == "ssm":
+            for dim, n in zip((2, 3, 4), rwkv_state_local(cfg)):
+                if cache["ssm"].shape[dim] != n:
+                    cache["ssm"] = dist.model_block(cache["ssm"], dim,
+                                                    n).contiguous()
     return tuple(out)

@@ -28,6 +28,20 @@ model-axes collectives of the Megatron forward (``models/layers.py``,
 ``models/attention.py``); each counts in :func:`collective_stats` as the
 wrapper it calls.
 
+Gradients. Every collective is differentiable, its backward the
+adjoint of the multi-rank linear map it computes (JAX's transpose rules):
+a ``psum``'s is a ``psum``, an all-gather's a reduce-scatter and a
+reduce-scatter's an all-gather, an all-to-all's the inverse all-to-all;
+``pmax`` takes no gradient. So a rank's cotangent of a tensor every rank
+of a group holds (a replicated activation) is its share of the whole
+cotangent, and the shares sum to it at the next collective: no call site
+has to pick between a slice and a reduce-scatter, and a leaf the ranks
+hold whole ends with its share, which ``training/train_loop.grads_of``
+sums over the axes that hold it. Collectives run by a backward count in
+:func:`collective_stats` as the forward's do; :func:`phase_stats` splits
+them into the forward, the backward, remat's re-run of a layer's forward
+inside the backward, and any phase a caller names (:func:`phase`).
+
 The launcher installs the mesh and the logical axis assignment with
 :func:`set_mesh` / :func:`use_mesh`; model code reads it with
 :func:`get_ctx`, as in the reference.
@@ -49,6 +63,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
+from torch.utils._python_dispatch import _disable_current_modes
 
 
 @dataclass
@@ -158,10 +173,13 @@ def _group(axes):
         n = 1
         for i in dims:
             n *= mesh.mesh.shape[i]
-        rows = mesh.mesh.permute(*others, *dims).reshape(-1, n)
+        # the mesh's ranks read with no dispatch mode on (a trace on fake
+        # tensors must not take them for its own)
+        with _disable_current_modes():
+            rows = mesh.mesh.permute(*others, *dims).reshape(-1, n).tolist()
         me = tdist.get_rank()
         mine = None
-        for row in rows.tolist():
+        for row in rows:
             g = tdist.new_group(ranks=row)
             if me in row:
                 mine = g
@@ -204,8 +222,12 @@ def rows(B: int, axes) -> Tuple[int, int]:
 #: collectives that gloo refused for CUDA tensors: staged through pinned
 #: host memory from then on
 _STAGED: set = set()
-#: per collective: [calls, seconds, bytes of the rank's input]
+#: per collective: [calls, seconds, bytes of the rank's input, bytes it
+#: receives under ``launch/hlo_analysis``'s conventions]
 _STATS: Dict[str, list] = {}
+#: the same, per (phase, collective)
+_PHASE_STATS: Dict[Tuple[str, str], list] = {}
+_PHASE: Optional[str] = None
 _TIMED = False
 
 
@@ -227,14 +249,61 @@ def set_timing(on: bool) -> None:
 
 
 def collective_stats() -> Dict[str, dict]:
-    """Per collective since the last reset: calls, the rank's input bytes
-    and, with :func:`set_timing`, wall seconds."""
-    return {k: {"calls": c, "seconds": s, "bytes": b}
-            for k, (c, s, b) in _STATS.items()}
+    """Per collective since the last reset: calls, the rank's input bytes,
+    the bytes it received (all-gather (n − 1)·in, all-reduce 2·in,
+    reduce-scatter in − in/n, all-to-all in; n the group's size) and,
+    with :func:`set_timing`, wall seconds."""
+    return {k: {"calls": c, "seconds": s, "bytes": b, "received": r}
+            for k, (c, s, b, r) in _STATS.items()}
+
+
+def phase_stats() -> Dict[str, Dict[str, dict]]:
+    """:func:`collective_stats` split by phase: "forward", "backward"
+    (a collective's adjoint), "remat" (a checkpointed layer's forward
+    run again inside the backward) or a name given by :func:`phase`."""
+    out: Dict[str, Dict[str, dict]] = {}
+    for (ph, k), (c, s, b, r) in _PHASE_STATS.items():
+        out.setdefault(ph, {})[k] = {"calls": c, "seconds": s, "bytes": b,
+                                     "received": r}
+    return out
 
 
 def reset_collective_stats() -> None:
     _STATS.clear()
+    _PHASE_STATS.clear()
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Count the collectives run inside under ``name`` in
+    :func:`phase_stats` (the train step's gradient mean and norm)."""
+    global _PHASE
+    prev, _PHASE = _PHASE, name
+    try:
+        yield
+    finally:
+        _PHASE = prev
+
+
+def _current_phase() -> str:
+    if _PHASE is not None:
+        return _PHASE
+    if torch._C._current_autograd_node() is None:
+        return "forward"
+    return "backward" if _IN_ADJOINT else "remat"
+
+
+def received_bytes(name: str, nbytes: int, n: int) -> int:
+    """The bytes a rank receives from collective ``name`` over a group of
+    ``n`` given an input of ``nbytes`` (``launch/hlo_analysis``'s
+    conventions, the reference's)."""
+    if name == "all_gather":
+        return (n - 1) * nbytes
+    if name in ("psum", "pmax"):
+        return 2 * nbytes
+    if name == "psum_scatter":
+        return nbytes - nbytes // max(n, 1)
+    return nbytes
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -265,12 +334,19 @@ def _transport(name: str, fn, out: torch.Tensor, inp: torch.Tensor, group):
             out.copy_(h_out)
     else:
         fn(out, inp, group)
-    st = _STATS.setdefault(name, [0, 0.0, 0])
-    st[0] += 1
-    st[2] += inp.numel() * inp.element_size()
+    nbytes = inp.numel() * inp.element_size()
+    got = received_bytes(name, nbytes, tdist.get_world_size(group))
+    dt = 0.0
     if t0 is not None:
         _sync(out)
-        st[1] += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+    for st in (_STATS.setdefault(name, [0, 0.0, 0, 0]),
+               _PHASE_STATS.setdefault((_current_phase(), name),
+                                       [0, 0.0, 0, 0])):
+        st[0] += 1
+        st[1] += dt
+        st[2] += nbytes
+        st[3] += got
     return out
 
 
@@ -279,9 +355,8 @@ def _transport(name: str, fn, out: torch.Tensor, inp: torch.Tensor, group):
 # ---------------------------------------------------------------------------
 
 
-def all_gather(x: torch.Tensor, axes, dim: int = 0, tiled: bool = False):
-    """``lax.all_gather``: the blocks of the group stacked on a new axis
-    ``dim`` (``tiled``: concatenated along ``dim``), in group order."""
+def _all_gather(x: torch.Tensor, axes, dim: int = 0, tiled: bool = False):
+    dim %= x.dim() + (0 if tiled else 1)
     g = _group(axes)
     if g is None:
         return x if tiled else x.unsqueeze(dim)
@@ -312,21 +387,7 @@ def _all_reduce(name: str, op, x: torch.Tensor, axes):
     return _transport(name, fn, out, out, g)
 
 
-def psum(x: torch.Tensor, axes):
-    return _all_reduce("psum", tdist.ReduceOp.SUM, x, axes)
-
-
-def pmax(x: torch.Tensor, axes):
-    return _all_reduce("pmax", tdist.ReduceOp.MAX, x, axes)
-
-
-def pmean(x: torch.Tensor, axes):
-    return psum(x, axes) / get_ctx().axis_size(_axes(axes))
-
-
-def psum_scatter(x: torch.Tensor, axes, dim: int = 0):
-    """``lax.psum_scatter(tiled=True)``: the group's sum, of which this
-    rank keeps block ``axis_index(axes)`` along ``dim``."""
+def _psum_scatter(x: torch.Tensor, axes, dim: int = 0):
     g = _group(axes)
     if g is None:
         return x
@@ -340,10 +401,7 @@ def psum_scatter(x: torch.Tensor, axes, dim: int = 0):
     return out.movedim(0, dim)
 
 
-def all_to_all(x: torch.Tensor, axes, split_dim: int, concat_dim: int):
-    """``lax.all_to_all(tiled=True)``: ``x`` split into n blocks along
-    ``split_dim``, block j sent to group rank j, and the n blocks received
-    concatenated along ``concat_dim`` in group order."""
+def _all_to_all(x: torch.Tensor, axes, split_dim: int, concat_dim: int):
     g = _group(axes)
     if g is None:
         return x
@@ -367,6 +425,121 @@ def all_to_all(x: torch.Tensor, axes, split_dim: int, concat_dim: int):
     shape[split_dim] = c
     shape[concat_dim] *= n
     return z.permute(*order).reshape(shape)
+
+
+
+# Each collective with its adjoint as the backward. A Function is built
+# only where a gradient can flow: serving runs the plain calls.
+_IN_ADJOINT = False
+
+
+def _adjoint(fn, *args):
+    global _IN_ADJOINT
+    prev, _IN_ADJOINT = _IN_ADJOINT, True
+    try:
+        return fn(*args)
+    finally:
+        _IN_ADJOINT = prev
+
+
+def _grad_flows(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllGatherFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim, tiled):
+        ctx.args = (axes, dim, tiled)
+        return _all_gather(x, axes, dim, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, dim, tiled = ctx.args
+        if not tiled:          # the stacked axis: scatter over it
+            return (_adjoint(_psum_scatter, g, axes, dim).squeeze(dim),
+                    None, None, None)
+        return _adjoint(_psum_scatter, g, axes, dim), None, None, None
+
+
+class _PsumFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return _all_reduce("psum", tdist.ReduceOp.SUM, x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _adjoint(_all_reduce, "psum", tdist.ReduceOp.SUM, g,
+                        ctx.axes), None
+
+
+class _PsumScatterFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.args = (axes, dim)
+        return _psum_scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, dim = ctx.args
+        return _adjoint(_all_gather, g, axes, dim, True), None, None
+
+
+class _AllToAllFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, split_dim, concat_dim):
+        ctx.args = (axes, split_dim, concat_dim)
+        return _all_to_all(x, axes, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, split_dim, concat_dim = ctx.args
+        return (_adjoint(_all_to_all, g, axes, concat_dim, split_dim),
+                None, None, None)
+
+
+def all_gather(x: torch.Tensor, axes, dim: int = 0, tiled: bool = False):
+    """``lax.all_gather``: the blocks of the group stacked on a new axis
+    ``dim`` (``tiled``: concatenated along ``dim``), in group order.
+    Backward: the reduce-scatter of the cotangent."""
+    if _grad_flows(x) and _group(axes) is not None:
+        return _AllGatherFn.apply(x, axes, dim, tiled)
+    return _all_gather(x, axes, dim, tiled)
+
+
+def psum(x: torch.Tensor, axes):
+    """``lax.psum``. Backward: the psum of the cotangent."""
+    if _grad_flows(x) and _group(axes) is not None:
+        return _PsumFn.apply(x, axes)
+    return _all_reduce("psum", tdist.ReduceOp.SUM, x, axes)
+
+
+def pmax(x: torch.Tensor, axes):
+    """``lax.pmax``, which takes no gradient (the result is detached)."""
+    return _all_reduce("pmax", tdist.ReduceOp.MAX, x.detach(), axes)
+
+
+def pmean(x: torch.Tensor, axes):
+    return psum(x, axes) / get_ctx().axis_size(_axes(axes))
+
+
+def psum_scatter(x: torch.Tensor, axes, dim: int = 0):
+    """``lax.psum_scatter(tiled=True)``: the group's sum, of which this
+    rank keeps block ``axis_index(axes)`` along ``dim``. Backward: the
+    tiled all-gather of the cotangent."""
+    if _grad_flows(x) and _group(axes) is not None:
+        return _PsumScatterFn.apply(x, axes, dim)
+    return _psum_scatter(x, axes, dim)
+
+
+def all_to_all(x: torch.Tensor, axes, split_dim: int, concat_dim: int):
+    """``lax.all_to_all(tiled=True)``: ``x`` split into n blocks along
+    ``split_dim``, block j sent to group rank j, and the n blocks received
+    concatenated along ``concat_dim`` in group order. Backward: the
+    inverse all-to-all of the cotangent."""
+    if _grad_flows(x) and _group(axes) is not None:
+        return _AllToAllFn.apply(x, axes, split_dim, concat_dim)
+    return _all_to_all(x, axes, split_dim, concat_dim)
 
 
 # ---------------------------------------------------------------------------

@@ -20,12 +20,18 @@ Mamba2 (SSD, simplified: ngroups=1, conv over x only), per layer
   with gated RMSNorm and output projection.
 
 Under a mesh (``models/dist.py``) RWKV-6 is Megatron's: the time mix's
-``w_r``/``w_k``/``w_v``/``w_g`` are column blocks that fall on head
-boundaries, so a rank runs the WKV recurrence of its own heads on its
-block of the state, and ``w_o`` is row-parallel (one ``psum``); the
-channel mix is column-parallel in ``w_ck`` and row-parallel in ``w_cv``
-and ``w_cr`` (their two partial sums in one ``psum``). Mamba2's weights
-are replicated (``param_spec``), so it runs whole on every rank.
+``w_r``/``w_k``/``w_v``/``w_g`` are column blocks, and ``w_o`` is
+row-parallel (one ``psum``); the channel mix is column-parallel in
+``w_ck`` and row-parallel in ``w_cv`` and ``w_cr`` (their two partial
+sums in one ``psum``). Where the column block falls on head boundaries a
+rank runs the WKV recurrence of its own heads on its block of the state.
+Where it ends inside a head (rwkv6-3b's 40 heads over 16 ranks) the
+recurrence is split by value columns instead, as ``cache_shardings``
+splits the state (its last dimension): r/k/v/w are gathered whole in one
+call, a rank runs every head over its hs/t value columns, the per-head
+group norm sums its squares over the ranks (one ``psum``), and one
+all-gather makes the output whole for the row-parallel ``w_o``. Mamba2's
+weights are replicated (``param_spec``), so it runs whole on every rank.
 
 Products the reference keeps in float32 (``preferred_element_type`` with
 no cast) run as float32 GEMMs of the widened operands here; the others
@@ -102,44 +108,81 @@ def _rwkv_mix(x, x_prev, mu):
     return x + (x_prev - x) * mu.to(x.dtype)
 
 
+def rwkv_state_shape(dl: int, d: int, hs: int) -> Tuple[int, int, int]:
+    """(heads, key, value) of a rank's WKV state whose time mix holds
+    ``dl`` of the ``d`` channels: every head whole without a split, its
+    heads where the block falls on head boundaries, every head's block of
+    hs/t value columns where it ends inside a head."""
+    if not dist.split_block(dl, d):
+        return d // hs, hs, hs
+    if dl % hs == 0:
+        return dl // hs, hs, hs
+    t = dist.tp_size()
+    if hs % t:
+        raise NotImplementedError(
+            f"a WKV state of head size {hs} splits over {t} model ranks "
+            "neither by heads nor by value columns")
+    return d // hs, hs, hs // t
+
+
+def _wkv(r, k, v, w, u, state):
+    """The WKV recurrence over T. r, k, w: (B, T, H, hs); v: (B, T, H,
+    hv); u: (H, hs, 1); state: (B, H, hs, hv). Returns (y (B, T, H, hv),
+    state)."""
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]    # (B, H, hs, hv)
+        ys.append(torch.matmul(r[:, t, :, None, :],
+                               state + u * kv)[:, :, 0])  # (B, H, hv)
+        state = w[:, t, :, :, None] * state + kv
+    return torch.stack(ys, dim=1), state
+
+
 def rwkv_time_mix_seq(p, x, x_last, state, cfg: ModelConfig):
     """x: (B, T, d); x_last: (B, d) the previous token's input (zeros at
     the start); state: (B, H, hs, hs) f32. Returns (out, new_x_last,
     new_state). Under a mesh the rank's block of the r/k/v/g columns
-    makes ``state`` its heads' (B, H/t, hs, hs)."""
+    makes ``state`` its heads' (B, H/t, hs, hs), or every head's block of
+    value columns (B, H, hs, hs/t) where the block ends inside a head
+    (:func:`rwkv_state_shape`)."""
     B, T, d = x.shape
     hs = cfg.ssm.rwkv_head_size
     dl = p["w_r"].shape[-1]                 # the rank's channels
     split = dist.split_block(dl, d)
+    H, _, hv = rwkv_state_shape(dl, d, hs)
     cols = slice(None)
     if split:
-        if dl % hs:
-            raise NotImplementedError(
-                f"{cfg.name}: the time mix's column block of {dl} ends "
-                f"inside a head of {hs}; not ported (ROADMAP item 7d)")
         c0 = dist.tp_rank() * dl
         cols = slice(c0, c0 + dl)
-    H = dl // hs
     x_prev = torch.cat([x_last[:, None].to(x.dtype), x[:, :-1]], dim=1)
     mu = p["mu"]
     xr, xk, xv, xw, xg = (_rwkv_mix(x, x_prev, mu[i]) for i in range(5))
-    r = matmul_f32(xr, p["w_r"]).reshape(B, T, H, hs)
-    k = matmul_f32(xk, p["w_k"]).reshape(B, T, H, hs)
-    v = matmul_f32(xv, p["w_v"]).reshape(B, T, H, hs)
+    r = matmul_f32(xr, p["w_r"])
+    k = matmul_f32(xk, p["w_k"])
+    v = matmul_f32(xv, p["w_v"])
     g = F.silu(matmul_f32(xg, p["w_g"]))
-    w = _rwkv_decay(p, xw, cols).reshape(B, T, H, hs)
-    u = p["u"][..., cols].float().reshape(H, hs)[..., :, None]  # (H, hs, 1)
-    ys = []
-    for t in range(T):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]    # (B, H, hs, hs)
-        ys.append(torch.matmul(r[:, t, :, None, :],
-                               state + u * kv)[:, :, 0])  # (B, H, hs)
-        state = w[:, t, :, :, None] * state + kv
-    y = torch.stack(ys, dim=1)                            # (B, T, H, hs)
-    # per-head group norm
-    y = rms_norm(y, torch.ones((hs,), dtype=torch.float32, device=x.device),
-                 cfg.rmsnorm_eps)
-    y = y.reshape(B, T, dl) * p["ln_x"][..., cols].float()
+    w = _rwkv_decay(p, xw, cols)
+    if hv == hs:
+        heads = lambda z: z.reshape(B, T, H, hs)
+        u = p["u"][..., cols].float().reshape(H, hs)[..., :, None]
+        y, state = _wkv(heads(r), heads(k), heads(v), heads(w), u, state)
+        # per-head group norm
+        y = rms_norm(y, torch.ones((hs,), dtype=torch.float32,
+                                   device=x.device), cfg.rmsnorm_eps)
+        y = y.reshape(B, T, dl)
+    else:
+        # by value columns: whole heads of r/k/v/w, the rank's hv columns
+        # of each head's v
+        heads = lambda z: z.reshape(B, T, H, hs)
+        r, k, v, w = (heads(z) for z in dist.gather_cols([r, k, v, w]))
+        v = dist.model_block(v, -1, hv)
+        u = p["u"].float().reshape(H, hs)[..., :, None]
+        y, state = _wkv(r, k, v, w, u, state)
+        # the group norm of a head's hs values, hv of them on each rank
+        var = dist.psum_model(y.square().sum(-1, keepdim=True)) / hs
+        y = y * torch.rsqrt(var + cfg.rmsnorm_eps)
+        y = dist.gather_model(y, -1).reshape(B, T, d)[..., cols]
+    y = y * p["ln_x"][..., cols].float()
     y = (y * g).to(x.dtype)
     out = row_parallel(y, p["w_o"], x.dtype) if split else matmul(y, p["w_o"])
     return out, x[:, -1], state

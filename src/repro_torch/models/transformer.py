@@ -41,10 +41,12 @@ dimension is split over the model axes where t divides it
 (``launch/sharding.cache_shardings``; the forward reads a block from a
 length t divides, :func:`kv_span`), whisper's cross K/V by frames, RWKV's
 token shifts and Zamba2's conv carry by channels, RWKV's WKV state by the
-heads of the rank's time mix. A step gathers the carried channels once
+heads of the rank's time mix (by value columns where its block ends
+inside a head). A step gathers the carried channels once
 (one all-gather of every layer's) and each layer writes back its block.
-Paged caches and chunked prefill under tensor parallelism are not ported
-(ROADMAP item 7f).
+Paged caches and chunked prefill under tensor parallelism are refused:
+the reference has no engine that drives a mesh (ROADMAP, "Beyond the
+reference").
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ from repro_torch.models.layers import (apply_mlp, dense_init, init_mlp,
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.ssm import (init_mamba, init_rwkv, mamba_dims,
                                     mamba_seq, rwkv_channel_mix_seq,
-                                    rwkv_time_mix_seq)
+                                    rwkv_state_shape, rwkv_time_mix_seq)
 
 
 # ---------------------------------------------------------------------------
@@ -115,19 +117,12 @@ def _cut(n: int) -> int:
     return n // t if t > 1 and n % t == 0 else n
 
 
-def rwkv_heads_local(cfg: ModelConfig) -> int:
-    """The RWKV-6 heads of this rank's time mix: H/t where the column
-    split of ``w_r``/``w_k``/``w_v``/``w_g`` falls on head boundaries."""
-    d, hs = cfg.d_model, cfg.ssm.rwkv_head_size
-    H, t = d // hs, dist.tp_size()
-    if t <= 1 or d % t:
-        return H
-    if H % t:
-        raise NotImplementedError(
-            f"{cfg.name}: the time mix's column split over {t} model ranks "
-            f"ends inside a head ({H} heads of {hs}); not ported (ROADMAP "
-            "item 7d)")
-    return H // t
+def rwkv_state_local(cfg: ModelConfig):
+    """(heads, key, value) of this rank's RWKV-6 WKV state
+    (``ssm.rwkv_state_shape`` of the time mix's column block: d/t where t
+    divides d)."""
+    return rwkv_state_shape(_cut(cfg.d_model), cfg.d_model,
+                            cfg.ssm.rwkv_head_size)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -159,8 +154,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
             cache["cross_k"] = zeros(L, batch, Se, nkv, hd)
             cache["cross_v"] = zeros(L, batch, Se, nkv, hd)
     elif cfg.family == "ssm":        # rwkv6
-        hs = cfg.ssm.rwkv_head_size
-        cache["ssm"] = zeros(L, batch, rwkv_heads_local(cfg), hs, hs,
+        cache["ssm"] = zeros(L, batch, *rwkv_state_local(cfg),
                              dt=torch.float32)
         cache["x_last_t"] = zeros(L, batch, _cut(d))
         cache["x_last_c"] = zeros(L, batch, _cut(d))
@@ -263,7 +257,8 @@ def _write_kv_block(cache_k_l, cache_v_l, k, v, lens, mode: str,
     else:
         raise NotImplementedError(
             f"KV write mode {mode!r} on a cache split over the model axes "
-            "(chunked prefill under tensor parallelism: ROADMAP item 7f)")
+            "(chunked prefill under tensor parallelism: beyond the "
+            "reference, ROADMAP 'Beyond the reference')")
 
 
 def stage_bounds(num_layers: int, num_stages: int):
@@ -404,7 +399,8 @@ def apply_dense_stack(params, x, positions, cfg: ModelConfig, cache,
     paged = not train and "k_pool" in cache
     if paged and dist.tp_size() > 1:
         raise NotImplementedError("a paged cache under tensor parallelism "
-                                  "(ROADMAP item 7f)")
+                                  "(beyond the reference, ROADMAP 'Beyond "
+                                  "the reference')")
     span = None if train or paged else kv_span(cache["k"].shape[2])
     cross_split = cfg.is_encdec and not train and dist.split_block(
         cache["cross_k"].shape[2], cfg.encoder.num_frames)
@@ -526,11 +522,10 @@ def apply_rwkv_stack(params, x, positions, cfg: ModelConfig, cache,
     train = mode == "train"
     d = cfg.d_model
     if train:
-        B = x.shape[0]
-        hs = cfg.ssm.rwkv_head_size
-        state0 = torch.zeros((B, params["layers"]["w_r"].shape[-1] // hs,
-                              hs, hs), device=x.device)
-        last0 = x.new_zeros((B, d))
+        state0 = torch.zeros((x.shape[0],) + rwkv_state_shape(
+            params["layers"]["w_r"].shape[-1], d, cfg.ssm.rwkv_head_size),
+            device=x.device)
+        last0 = x.new_zeros((x.shape[0], d))
     else:
         # the token shifts' blocks made whole once a step
         n = cache["x_last_t"].shape[-1]

@@ -65,26 +65,47 @@ def lr_schedule(cfg: TrainConfig, step):
     return cfg.learning_rate * warm * cos
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+def global_norm(tree, split_axes=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``. Under a mesh,
+    ``split_axes`` gives per leaf (in :func:`tree_leaves` order) the mesh
+    axes it is split over: a leaf's squares are summed over the ranks of
+    those axes (one ``psum`` per set of axes, the leaves' sums packed), so
+    a split leaf adds every block and a whole one counts once, and the
+    norm is the same on every rank."""
+    sq = [torch.sum(torch.square(leaf.float())) for leaf in tree_leaves(tree)]
+    if split_axes is not None:
+        from repro_torch.models import dist
+        by_axes = {}
+        for i, axes in enumerate(split_axes):
+            if axes:
+                by_axes.setdefault(tuple(axes), []).append(i)
+        with dist.phase("norm"):
+            for axes, idx in by_axes.items():
+                summed = dist.psum(torch.stack([sq[i] for i in idx]), axes)
+                for i, v in zip(idx, summed.unbind(0)):
+                    sq[i] = v
+    return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, split_axes=None):
+    norm = global_norm(grads, split_axes)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: AdamWState, cfg: TrainConfig):
+def adamw_update(params, grads, state: AdamWState, cfg: TrainConfig,
+                 split_axes=None):
     """One AdamW step. Returns (params, state, metrics); the new
-    parameters are new tensors (the old ones are not written)."""
+    parameters are new tensors (the old ones are not written). Under a
+    mesh the leaves are the rank's blocks, ``split_axes`` as
+    :func:`global_norm` takes them; the update is elementwise, so each
+    rank steps its own blocks."""
     grads = tree_map(lambda g: g.float(), grads)
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, split_axes)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, split_axes)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

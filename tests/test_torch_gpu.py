@@ -757,3 +757,91 @@ def test_tp_forward_on_a_one_rank_mesh_equals_no_mesh(arch):
     finally:
         tdist.destroy_process_group()
     assert torch.equal(got, want)
+
+
+def test_real_cuda_tensors_never_take_the_shape_only_path():
+    """The kernels' wrappers answer a fake CUDA tensor (the dry-run's
+    trace) with empty outputs of their shapes and launch nothing; a real
+    CUDA tensor launches each kernel once and matches its plain version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core.sampling import SamplingParams
+    from repro_torch.kernels import _build, ops
+    dev = _cuda()
+    B, V = 3, 1000
+
+    def call_all(make):
+        # unfiltered rows, no penalties: inside every kernel's contract
+        z = make((B, V), torch.float32)
+        c = make((B, V), torch.int32) * 0
+        hot = torch.arange(V, device=dev) < 128
+        one, zero = z[:, 0] * 0 + 1, z[:, 0] * 0
+        return (ops.fused_penalty_scale(z, c, c, one, zero, zero, one),
+                ops.fused_shvs_masses(z, hot),
+                ops.fused_sample(z, c, c, SamplingParams(
+                    one, c[:, 0].contiguous(), one, zero, one, zero, zero),
+                    one * 0.5,
+                    hot, k_cap=64),
+                ops.fused_gumbel_argmax(z, 7))
+
+    ops.reset_launch_counts()
+    with FakeTensorMode():
+        out = call_all(lambda s, dt: torch.zeros(s, dtype=dt, device=dev))
+        assert _build.shape_only(out[0])
+        assert tuple(out[0].shape) == (B, V)
+        assert [tuple(t.shape) for t in out[1]] == [(B,)] * 4
+        assert [t.dtype for t in out[2]] == [torch.int32, torch.bool,
+                                             torch.float32, torch.int32]
+        assert out[3].dtype == torch.int32 and tuple(out[3].shape) == (B,)
+    assert all(v == 0 for v in ops.launch_counts().values())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    real = call_all(lambda s, dt: (torch.randn(s, generator=gen, device=dev)
+                                   * 2).to(dt))
+    torch.cuda.synchronize()
+    assert not _build.shape_only(real[0])
+    assert all(v == 1 for v in ops.launch_counts().values())
+    z = real[0]
+    want = ref.gumbel_argmax_ref(z.cpu(), 7)
+    assert torch.equal(ops.fused_gumbel_argmax(z, 7).cpu(), want)
+
+
+def test_train_program_on_one_rank_nccl_mesh_equals_no_mesh():
+    """The train program of reduced smollm-360m on a (1, 1) NCCL mesh: one
+    step equals the program without a mesh bit for bit — loss, grad norm,
+    and every parameter after the step."""
+    import socket
+
+    import torch.distributed as tdist
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import dist
+    from repro_torch.training.optimizer import adamw_init, tree_leaves
+    dev = _cuda()
+    cfg = get_arch("smollm-360m").reduced()
+    full = Model(cfg).init(seed=0, device=dev)
+    rs = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rs.integers(0, cfg.vocab_size, (4, 16)))
+             .to(dev) for k in ("tokens", "labels")}
+
+    def run(mesh):
+        fn, _, ins, _, baxes = steps.make_train_step_program(
+            cfg, ShapeConfig("t", 16, 4, "train"), mesh, device=dev)
+        with dist.use_mesh(mesh, batch_axes=baxes):
+            p, _, b = steps.local_inputs(cfg, (full, None, batch), ins, mesh)
+            q, _, met = fn(p, adamw_init(p), b)
+        return q, {k: float(v) for k, v in met.items()}
+
+    want, want_m = run(None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        got, got_m = run(make_local_mesh(1, 1))
+    finally:
+        tdist.destroy_process_group()
+    assert got_m == want_m
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(want)))

@@ -5,8 +5,7 @@ reference's (``repro.launch.steps``), in-process on the CPU.
   entry, the program's whole inputs (meta tensors) have the reference's
   shapes and dtypes (its ``eval_shape`` stand-ins), and its in/out specs
   equal the reference's shardings on a 16×16 mesh (``MeshShape`` against
-  ``AbstractMesh``; the train program, which the port refuses under a
-  mesh, on 1×1).
+  ``AbstractMesh``).
 * ``Model.input_specs`` gives the reference's shapes and dtypes on the
   meta device for every arch × kind.
 * Without a mesh, on the reduced f32 configs with the reference's
@@ -20,7 +19,9 @@ reference's (``repro.launch.steps``), in-process on the CPU.
   of a leaf's elements, each within twice the step's learning rate (the
   first AdamW step moves an element by lr·g/(|g| + 1e-8), ill-conditioned
   where |g| is near 1e-8).
-* The train program refuses a mesh of more than one rank.
+* The train program no longer refuses a mesh of more than one rank: at
+  (2, 4) it builds with the reference's specs (``tests/test_torch_tp.py``
+  runs it on 8 ranks).
 """
 import importlib
 import pkgutil
@@ -121,9 +122,8 @@ def test_program_inputs_and_specs_match_reference(arch, shape):
     tshape = ShapeConfig(**{f: getattr(jshape, f) for f in
                             ("name", "seq_len", "global_batch", "kind",
                              "window_override")})
-    sizes = (1, 1) if jshape.kind == "train" else (16, 16)
-    jm = AbstractMesh(sizes, ("data", "model"))
-    tm = MeshShape(sizes, ("data", "model"))
+    jm = AbstractMesh((16, 16), ("data", "model"))
+    tm = MeshShape((16, 16), ("data", "model"))
     jout = jsteps.program_for(jshape.kind)(jget(arch), jshape, jm)
     kw = {} if jshape.kind == "train" else {"device": "cpu"}
     tout = tsteps.program_for(tshape.kind)(tget(arch), tshape, tm, **kw)
@@ -146,11 +146,17 @@ def test_input_specs_match_reference(arch):
 
 
 def test_train_program_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="7c"):
-        tsteps.make_train_step_program(
-            tget("smollm-360m").reduced(),
-            ShapeConfig("t", 8, 2, "train"), MeshShape((2, 4),
-                                                       ("data", "model")))
+    # it did until the train step ran under a mesh; now it builds at (2, 4)
+    # with the reference's specs
+    jout = jsteps.make_train_step_program(
+        jget("smollm-360m").reduced(), JShape("t", 8, 2, "train"),
+        AbstractMesh((2, 4), ("data", "model")))
+    tout = tsteps.make_train_step_program(
+        tget("smollm-360m").reduced(), ShapeConfig("t", 8, 2, "train"),
+        MeshShape((2, 4), ("data", "model")))
+    _same_specs(tout[2], jout[2])
+    _same_specs(tout[3], jout[3])
+    assert tout[4] == jout[4] == ("data",)
 
 
 # ---------------------------------------------------------------------------

@@ -15,13 +15,16 @@ host devices), it writes one ``.npz`` of inputs and outputs.
 
     python tests/torch_dist_jax_ref.py OUT.npz programs
 
-writes instead the reference's serving programs at (2, 4) on reduced f32
+writes instead (whole, under its final name only once written) the
+reference's serving programs at (2, 4) on reduced f32
 smollm-360m (``tests/test_torch_tp.py``): ``make_prefill_program`` (B = 8,
 a 16-token prompt) and three ``make_serve_step_program`` steps (S1,
 ``shvs``; the prefill cache padded to 32 slots), each jitted with its own
 shardings, with their tokens and the logits of the same forward
 (``Model.prefill`` / ``decode_step`` jitted with the programs' param and
-cache shardings), the inputs, and the weights under ``p/...``.
+cache shardings), the inputs, and the weights under ``p/...``; and one
+step of ``make_train_step_program`` at (2, 4) on reduced f32
+smollm-360m, granite-moe-1b-a400m and rwkv6-3b (:func:`train_program`).
 """
 import os
 import sys
@@ -225,7 +228,61 @@ def programs(path):
             toks.append(np.asarray(tok))
     out["ref_tokens"] = np.stack(toks)
     out["ref_logits"] = np.stack(lgs)
-    np.savez(path, **out)
+    for arch in TRAIN_PROG_ARCHS:
+        out.update(train_program(arch, mesh))
+    # written whole, then renamed: the workers that run beside this
+    # process wait for the file to appear
+    with open(path + ".part", "wb") as f:
+        np.savez(f, **out)
+    os.replace(path + ".part", path)
+
+
+#: the train program's families at (2, 4): dense, MoE (the EP experts) and
+#: RWKV-6; B = 8 rows of 16 tokens
+TRAIN_PROG_ARCHS = ("smollm-360m", "granite-moe-1b-a400m", "rwkv6-3b")
+TRAIN_PROG_B, TRAIN_PROG_S = 8, 16
+
+
+def _flat(tree, prefix):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+    else:
+        out[prefix] = np.asarray(tree)
+    return out
+
+
+def train_program(arch, mesh):
+    """The reference's ``make_train_step_program`` jitted with its own
+    shardings at (2, 4) on reduced f32 ``arch``: one AdamW step from the
+    reference's init at ``PRNGKey(0)``. Writes under ``train/<arch>/``
+    the tokens and labels, the parameters before (``p/...``) and after
+    (``q/...``), and the loss and grad norm."""
+    from repro.config import ShapeConfig
+    from repro.launch import steps
+    from repro.models.model import Model
+    from repro.training.optimizer import adamw_init
+
+    cfg = get_arch(arch).reduced()
+    B, S = TRAIN_PROG_B, TRAIN_PROG_S
+    fn, _, ins, outs, baxes = steps.make_train_step_program(
+        cfg, ShapeConfig("t", S, B, "train"), mesh)
+    params = Model(cfg).init(jax.random.PRNGKey(0))
+    rs = np.random.default_rng(31)
+    batch = {k: rs.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    with dist.use_mesh(mesh, batch_axes=baxes, model_axes=("model",)):
+        q, _, met = jax.jit(fn, in_shardings=ins, out_shardings=outs)(
+            params, adamw_init(params),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    pre = f"train/{arch}/"
+    out = {pre + k: v for k, v in batch.items()}
+    out.update({pre + "p" + k: v for k, v in _flat(params, "").items()})
+    out.update({pre + "q" + k: v for k, v in _flat(q, "").items()})
+    for k in ("loss", "grad_norm", "lr"):
+        out[pre + k] = np.asarray(met[k])
+    return out
 
 
 if __name__ == "__main__":

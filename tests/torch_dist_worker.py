@@ -6,9 +6,10 @@ single-device paths.
     python tests/torch_dist_worker.py RANK WORLD PORT REF.npz OUT.json [MODE]
 
 MODE "tp" runs instead the checks of ``tests/test_torch_tp.py`` (the
-tensor-parallel forward of every family against the single-process one,
-and the serving programs against the reference's, REF.npz being
-``torch_dist_jax_ref.py``'s "programs" output); MODE "stats" (2 ranks, no
+tensor-parallel forward and train step of every family against the
+single-process ones, and the serving and train programs against the
+reference's, REF.npz being ``torch_dist_jax_ref.py``'s "programs"
+output); MODE "stats" (2 ranks, no
 REF) runs known collectives and writes ``dist.collective_stats()`` for
 ``tests/test_torch_hlo_analysis.py``.
 
@@ -19,6 +20,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -349,13 +351,16 @@ def check_decode(res, shape):
 #: the families of the tensor-parallel forward, reduced f32: (arch, prompt
 #: length, cache length, window override). starcoder2's window of 16 under
 #: a 20-token prompt makes the cache a ring that wraps; llama4's reduced
-#: MoE carries the shared expert.
+#: MoE carries the shared expert; "rwkv6-3b-midhead" is reduced RWKV-6
+#: with 6 heads of 16, whose time mix's column block at t = 4 (24 of 96)
+#: ends inside a head (:func:`reduced_config`).
 TP_ARCHS = (("smollm-360m", 6, 16, None), ("qwen3-8b", 6, 16, None),
             ("tinyllama-1.1b", 6, 16, None), ("starcoder2-7b", 20, 32, 16),
             ("internvl2-2b", 6, 32, None), ("whisper-base", 6, 16, None),
             ("granite-moe-1b-a400m", 6, 16, None),
             ("llama4-maverick-400b-a17b", 6, 16, None),
-            ("rwkv6-3b", 6, 16, None), ("zamba2-1.2b", 6, 16, None))
+            ("rwkv6-3b", 6, 16, None), ("zamba2-1.2b", 6, 16, None),
+            ("rwkv6-3b-midhead", 6, 16, None))
 TP_STEPS = 3
 #: the logits' tolerance (abs + rel) of the tensor-parallel forward: its
 #: row-parallel sums add the same terms in another order. Reduced Zamba2
@@ -402,7 +407,7 @@ def check_tp(res, shape, archs=TP_ARCHS, batch_axes=("data",), tag=""):
                             mesh_dim_names=("replica", "data", "model"))
     B = 4
     for arch, S, Sc, window in archs:
-        cfg = get_arch(arch).reduced()
+        cfg = reduced_config(arch)
         m = Model(cfg)
         V = cfg.vocab_size
         tol = TP_TOL.get(arch, 1e-5)
@@ -459,6 +464,199 @@ def check_tp(res, shape, archs=TP_ARCHS, batch_axes=("data",), tag=""):
                   logits_block=list(lg.shape), weight_bytes=w_held,
                   weight_bytes_spec=w_spec, cache_bytes=c_held,
                   cache_bytes_spec=c_spec, collective_calls=calls)
+
+
+#: the train step's tolerances, after ``tests/test_torch_steps.py``'s
+#: scheme for the first AdamW step: loss and grad norm within TRAIN_RTOL
+#: relative; each gradient block within TRAIN_RTOL of the leaf's largest
+#: single-process gradient (the row-parallel and psum'd sums add the same
+#: terms in another order); the parameters after the step within 1e-6
+#: absolute + 1e-5 relative plus what the gradient's tolerance δ moves the
+#: first AdamW step by: it moves an element by lr·g/(|g| + ε), ε = 1e-8,
+#: so by at most lr·ε·δ/((|g| − δ + ε)(|g| + ε)) more where |g| > δ, and
+#: by up to 2·lr where |g| ≤ δ (g's sign open); |g| the single process's
+#: gradient. Against the reference's program (no gradient to read) the
+#: scheme is test_torch_steps.py's: at most a 1e-4 share of a leaf's
+#: elements off (or one element), each within twice the learning rate.
+TRAIN_RTOL = 1e-5
+#: (gradient tolerance, the share against the reference) where the
+#: reduced config's step is ill-conditioned in f32, at the single
+#: process's own sensitivity: one-ulp relative noise (1.2e-7) on the
+#: parameters alone moves its gradients by up to 19.8e-5 (RWKV-6), 5.0e-5
+#: (Zamba2) and 1.8e-5 (llama4's router) of a leaf's largest (smollm-360m:
+#: 0.18e-5), and its parameters after the step off as above on up to a
+#: 3.1e-4 share of a leaf (RWKV-6; smollm-360m: 0.9e-4)
+TRAIN_TOL = {"rwkv6-3b": (2e-4, 5e-4), "rwkv6-3b-midhead": (2e-4, 5e-4),
+             "zamba2-1.2b": (5e-5, 5e-4),
+             "llama4-maverick-400b-a17b": (2e-5, 5e-4)}
+TRAIN_B, TRAIN_S = 4, 8
+
+
+def train_batch(cfg, B=TRAIN_B, S=TRAIN_S):
+    batch = tp_batch(cfg, B, S)
+    rs = np.random.default_rng(12)
+    batch["labels"] = torch.from_numpy(rs.integers(0, cfg.vocab_size,
+                                                   (B, S)))
+    return batch
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_leaves(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def _single_step(model, params, batch, tcfg):
+    """The single process's train step, its gradient computed once: (the
+    gradient tree, the parameters after the step, the metrics, the leaves
+    the loss does not reach)."""
+    from repro_torch.training.optimizer import (adamw_init, adamw_update,
+                                                tree_leaves, tree_map,
+                                                tree_unflatten)
+    from repro_torch.training.train_loop import loss_fn
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, met = loss_fn(model, live, batch, tcfg, remat=tcfg.remat)
+    leaves = tree_leaves(live)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    unused = sorted(k for k, g in zip(_leaves(params), grads) if g is None)
+    g = tree_unflatten(params, [torch.zeros_like(p) if g is None else g
+                                for p, g in zip(leaves, grads)])
+    after, _, opt_met = adamw_update(params, g, adamw_init(params), tcfg)
+    return g, after, {**met, **opt_met}, unused
+
+
+def _grad_errors(got_g, want_g, rtol):
+    """The worst gradient block's error over its tolerance (``rtol`` of
+    the leaf's largest single-process gradient)."""
+    err = 0.0
+    for k, want in _leaves(want_g).items():
+        got = _leaves(got_g)[k]
+        if tuple(got.shape) != tuple(want.shape):
+            return float("inf")
+        scale = rtol * max(float(want.abs().max()), 1e-30)
+        err = max(err, float((got.float() - want.float()).abs().max())
+                  / scale)
+    return err
+
+
+def _param_errors(got_p, want_p, lr, g_whole=None, rtol=TRAIN_RTOL,
+                  share=1e-4, eps=1e-8):
+    """The parameters after the step (``got_p``: the ranks' blocks
+    gathered) against ``want_p``, both {path: leaf}: (the worst count of a
+    leaf's elements off by more than allowed over the count allowed off,
+    whether every element off is within 2·lr). With the single process's
+    whole gradients ``g_whole`` an element is allowed 1e-6 + 1e-5·|want|
+    plus what the gradient's tolerance δ (``rtol`` of the leaf's largest)
+    moves AdamW's first step by (TRAIN_RTOL's comment), and none may be
+    off; without, 1e-6 + 1e-5·|want|, and a ``share`` of the leaf (at
+    least one element) may be off."""
+    worst, ok = 0.0, True
+    for k, want in want_p.items():
+        got = got_p[k].float()
+        want = want.float()
+        diff = (got - want).abs()
+        allowed = 1e-6 + 1e-5 * want.abs()
+        if g_whole is not None:
+            g = g_whole[k].float().abs()
+            d = rtol * float(g.max())
+            moved = lr * eps * d / ((g - d + eps) * (g + eps))
+            allowed = allowed + torch.where(g > d, moved, 2 * lr)
+        off = diff > allowed
+        if g_whole is not None:
+            worst = max(worst, float(off.sum()))
+        else:
+            worst = max(worst, int(off.sum()) / max(share * off.numel(), 1))
+        ok &= bool((diff[off] < 2 * lr).all())
+    return worst, ok
+
+
+def check_tp_train(res, shape, archs=None, single=None):
+    """The train program's step at ``shape`` (replicated over the 8
+    ranks) against the single process's, every family (``TP_ARCHS`` and
+    the mid-head RWKV-6): the loss and grad norm within TRAIN_RTOL, each
+    rank's gradient blocks and the parameters after the step (the blocks
+    gathered) as TRAIN_RTOL's comment says (TRAIN_TOL's gradient tolerance
+    where a family is ill-conditioned), the leaves without a gradient the single
+    process's (none), and the collectives of the step by phase.
+    ``single``: a dict the single-process steps are kept in across
+    shapes."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.training.optimizer import adamw_init, adamw_update
+    from repro_torch.training.train_loop import grad_layout, grads_of
+    data, model_ax = shape
+    reps = tdist.get_world_size() // (data * model_ax)
+    mesh = init_device_mesh("cpu", (reps, data, model_ax),
+                            mesh_dim_names=("replica", "data", "model"))
+    tcfg = TrainConfig(warmup_steps=1, total_steps=10)
+    single = {} if single is None else single
+    for arch in archs or TRAIN_ARCHS:
+        cfg = reduced_config(arch)
+        m = Model(cfg)
+        batch = train_batch(cfg)
+        if arch not in single:
+            with dist.use_mesh(None):
+                p_full = m.init(seed=0, device="cpu")
+                single[arch] = (p_full,) + _single_step(m, p_full, batch,
+                                                        tcfg)
+        p_full, g_full, p1, met, unused = single[arch]
+        with dist.use_mesh(mesh, batch_axes=("data",)):
+            keep = sharding.every_leaf
+            p = sharding.shard_tree(p_full, mesh, cfg, keep=keep)
+            want_g = sharding.shard_tree(g_full, mesh, cfg, keep=keep)
+            r0, n = dist.rows(TRAIN_B, ("data",))
+            mine = {k: v[r0:r0 + n] for k, v in batch.items()}
+            # the train step's two halves, as make_train_step runs them
+            cut, g, q, tmet = None, None, p, {}
+            dist.reset_collective_stats()
+            layout = grad_layout(m, p)
+            try:
+                _, tmet, g = grads_of(m, p, mine, tcfg, remat=tcfg.remat,
+                                      layout=layout)
+                q, _, opt_met = adamw_update(
+                    p, g, adamw_init(p), tcfg,
+                    split_axes=[axes for axes, _ in layout])
+                tmet.update(opt_met)
+            except RuntimeError as e:
+                cut = str(e)
+            phases = {ph: sum(v["calls"] for v in st.values())
+                      for ph, st in dist.phase_stats().items()}
+            specs = _leaves(sharding.param_shardings(p_full, mesh, cfg))
+            q = {k: _gather_block(v, specs[k])
+                 for k, v in _leaves(q).items()}
+        lr = float(met["lr"])
+        g_tol, _ = TRAIN_TOL.get(arch, (TRAIN_RTOL, 1e-4))
+        g_err = float("inf") if g is None else \
+            _grad_errors(g, want_g, g_tol)
+        off, off_ok = _param_errors(q, _leaves(p1), lr, _leaves(g_full),
+                                    g_tol)
+        rel = lambda k: abs(float(tmet[k]) - float(met[k])) / \
+            max(abs(float(met[k])), 1e-30) if k in tmet else float("inf")
+        loss_err = rel("loss") / TRAIN_RTOL
+        norm_err = rel("grad_norm") / TRAIN_RTOL
+        ok = (cut is None and not unused and loss_err <= 1 and
+              norm_err <= 1 and g_err <= 1 and off == 0 and off_ok)
+        res.check(f"train_{arch}_{data}x{model_ax}", ok,
+                  loss_over_tol=res.worst(loss_err),
+                  grad_norm_over_tol=res.worst(norm_err),
+                  grad_over_tol=res.worst(g_err),
+                  params_off=res.worst(off), severed=cut,
+                  unused_single=unused, phases=phases)
+
+
+#: the train step's families: TP_ARCHS'
+TRAIN_ARCHS = tuple(a[0] for a in TP_ARCHS)
+
+
+def reduced_config(arch):
+    if arch == "rwkv6-3b-midhead":
+        cfg = get_arch("rwkv6-3b").reduced()
+        return dataclasses.replace(
+            cfg, d_model=96, ssm=dataclasses.replace(cfg.ssm,
+                                                     rwkv_head_size=16))
+    return get_arch(arch).reduced()
 
 
 def _gather_block(x, spec):
@@ -545,6 +743,57 @@ def check_programs_reference(res, ref):
               err_over_tol=res.worst(err), tokens_equal=tok_ok)
 
 
+def check_train_programs_reference(res, ref):
+    """The port's per-rank train program at (2, 4) == the reference's
+    jitted GSPMD train program (``torch_dist_jax_ref.train_program``) on
+    reduced f32 smollm-360m, granite-moe-1b-a400m and rwkv6-3b, from the
+    reference's parameters: loss and grad norm within TRAIN_RTOL relative,
+    the parameters after the step (the ranks' blocks gathered) with at
+    most a 1e-4 share of a leaf off (TRAIN_TOL's for RWKV-6), as
+    TRAIN_RTOL's comment says."""
+    from repro_torch.training.optimizer import adamw_init
+    mesh = make_local_mesh(2, 4)
+    for arch in ("smollm-360m", "granite-moe-1b-a400m", "rwkv6-3b"):
+        cfg = get_arch(arch).reduced()
+        pre = f"train/{arch}/"
+
+        def tree(tag):
+            out = {}
+            for key in ref.files:
+                if key.startswith(pre + tag + "/"):
+                    node = out
+                    *path, leaf = key[len(pre) + len(tag) + 1:].split("/")
+                    for k in path:
+                        node = node.setdefault(k, {})
+                    node[leaf] = torch.from_numpy(ref[key])
+            return out
+
+        p_full, q_want = tree("p"), tree("q")
+        batch = {k: torch.from_numpy(ref[pre + k])
+                 for k in ("tokens", "labels")}
+        B, S = batch["tokens"].shape
+        fn, a_in, ins, _, baxes = steps.make_train_step_program(
+            cfg, ShapeConfig("t", S, B, "train"), mesh, device="cpu")
+        with dist.use_mesh(mesh, batch_axes=baxes, model_axes=("model",)):
+            p, opt, b = steps.local_inputs(
+                cfg, (p_full, adamw_init(p_full), batch), ins, mesh)
+            q, _, met = fn(p, opt, b)
+            specs = _leaves(ins[0])
+            q = {k: _gather_block(v, specs[k])
+                 for k, v in _leaves(q).items()}
+        _, off_max = TRAIN_TOL.get(arch, (TRAIN_RTOL, 1e-4))
+        lr = float(ref[pre + "lr"])
+        off, off_ok = _param_errors(q, _leaves(q_want), lr, share=off_max)
+        rel = lambda k: abs(float(met[k]) - float(ref[pre + k])) / \
+            abs(float(ref[pre + k])) / TRAIN_RTOL
+        res.check(f"train_program_reference_{arch}_2x4",
+                  rel("loss") <= 1 and rel("grad_norm") <= 1 and
+                  off <= 1 and off_ok,
+                  loss_over_tol=res.worst(rel("loss")),
+                  grad_norm_over_tol=res.worst(rel("grad_norm")),
+                  param_off_over_tol=res.worst(off))
+
+
 def check_stats(res):
     """Known collectives over the model group of a (1, 2) mesh; the
     counts and bytes ``dist.collective_stats`` keeps, for
@@ -563,6 +812,17 @@ def check_stats(res):
         res.out["group"] = dist.tp_size()
 
 
+def wait_for(path, timeout=600.0):
+    """``path`` once it exists (the reference's outputs, written by a
+    process that runs beside this job)."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.5)
+    return path
+
+
 def main(rank, world, port, ref_path, out_path, mode="distribution"):
     torch.set_num_threads(1)
     tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -571,11 +831,15 @@ def main(rank, world, port, ref_path, out_path, mode="distribution"):
     if mode == "stats":
         check_stats(res)
     elif mode == "tp":
+        single = {}
         for shape in ((2, 2), (1, 4), (2, 4)):
             check_tp(res, shape)
+            check_tp_train(res, shape, single=single)
         check_tp(res, (1, 4), [a for a in TP_ARCHS if a[0] == "zamba2-1.2b"],
                  batch_axes=None, tag="_replicated")
-        check_programs_reference(res, np.load(ref_path))
+        ref = np.load(wait_for(ref_path))
+        check_programs_reference(res, ref)
+        check_train_programs_reference(res, ref)
     else:
         ref = np.load(ref_path)
         mesh = make_local_mesh(2, 4)
