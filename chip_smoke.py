@@ -242,11 +242,31 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``examples/torch_*.py`` on the card at small arguments (the train
    example 20 steps of 2 rows of 32 tokens, so its warmup moves the loss),
    in this process, with its decision kernels' launches.
+14. degenerate decision rows (``tests/torch_degenerate_rows.py``, the
+   fixture the CPU tests hold to the reference): (a) every kernel against
+   its plain version, row by row, on each of its cases (``top_p`` 0 and
+   -0.5, ``min_p`` 1.5, 2 and 1, τ 1e-30 and NaN, repetition 0 with
+   counts, a NaN column in the first, a middle and the last CTA's range,
+   an all-NaN and an all -inf row, a +inf column, rows with fewer and
+   more finite values than K) at (8, 49152), (64, 151936) and (8, 50021),
+   ``fused_sample`` at k_cap 256 and 2048 on the path it picks and on the
+   global path, and ROADMAP Fault 10's probe (B = 3, V = 1000, k_cap 64,
+   ``min_p`` = 2: nothing kept, the draw in bounds); (b) full-width
+   smollm-360m with ``fused`` on the contiguous and the paged cache
+   serves 8 requests, ``top_p = 0`` and ``min_p = 2`` ones beside their
+   greedy twins and ordinary ones, with the launch counters reset just
+   before: where nothing is kept the draw is the top penalised logit, so
+   each degenerate stream equals its twin's; then a later batch on the
+   same CUDA context; (c) the gateway over one such replica: ``"top_p":
+   0`` and ``"min_p": 2`` get 200 and the greedy twin's stream. It prints
+   each kernel's and case's result and raises after the report if any
+   row differs.
 
 ``python3 chip_smoke.py --families-only`` builds the kernels and runs
 phases 3 and 9 alone, printing one JSON line. ``--train-only`` runs
 phase 10 alone the same way, ``--dist-only`` phase 11, ``--tp-only``
-phase 12 and ``--mesh-train-only`` phase 13.
+phase 12, ``--mesh-train-only`` phase 13 and ``--degenerate-only``
+phase 14.
 
 ``python3 chip_smoke.py --host-only`` builds the kernels and runs phase 5's
 ``shvs`` rows on the device and in the host pool, in turns, and the pool
@@ -4278,6 +4298,191 @@ def mesh_train_only(dev, card):
     return 0
 
 
+# -- phase 14: degenerate decision rows ----------------------------------------
+
+DEGENERATE_SHAPES = (("main", B_MAIN, V_MAIN), ("large", B_LARGE, V_LARGE),
+                     ("odd", B_MAIN, V_ODD))
+DEGENERATE_K = (K_CAP, 2048)
+DEGENERATE_NEW = 16
+# (prompt, the request's filters over synth_requests' sampling; None: as
+# drawn) of phase 14's batch; a degenerate request is followed by its
+# greedy twin (the same prompt and penalties, greedy=True)
+DEGENERATE_BATCH = ((0, dict(top_p=0.0)), (1, dict(min_p=2.0)),
+                    (2, dict(top_k=0, top_p=0.0)), (3, None), (1, None))
+
+
+def degenerate_fixture():
+    """``tests/torch_degenerate_rows.py``, the rows the CPU tests hold to
+    the reference."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_degenerate_rows
+    return torch_degenerate_rows
+
+
+def degenerate_kernels(dev):
+    """Phase 14 (a): every kernel against its plain version on every case
+    of the fixture at the main, the large and the odd shape, and on the
+    probe that first showed the out-of-bounds draw (ROADMAP Fault 10).
+    Returns the per-row report and the checks that differ."""
+    import torch
+    from repro_torch.kernels import fused_kernel
+    fx = degenerate_fixture()
+    report, bad = {}, []
+    for shape, B, V in DEGENERATE_SHAPES:
+        for name in fx.CASES:
+            res = fx.kernel_rows(fx.tensors(fx.case(name, B, V, seed=B + V),
+                                            dev),
+                                 k_caps=DEGENERATE_K, block_v=BLOCK_V)
+            differ = res.pop("differ")
+            report[f"{shape} {name}"] = {"B": B, "V": V, "rows": res,
+                                         "differ": differ}
+            bad += [f"{shape} {name}: {k} rows {v['rows']}"
+                    for k, v in differ.items()]
+            said = "; ".join(f"{k} differs at rows {v['rows']}"
+                             for k, v in differ.items()) or \
+                f"{len(res)} checks equal on all {B} rows"
+            print(f"degenerate {shape} B={B} V={V} {name}: {said}")
+    x = fx.probe_inputs(dev)
+    res = fx.kernel_rows(x, k_caps=(64,), block_v=BLOCK_V)
+    tokens, _, _, kept = fused_kernel.fused_sample(
+        *[x[k] for k in fx.FUSED], k_cap=64, block_v=BLOCK_V)
+    torch.cuda.synchronize()
+    probe = {"rows": {k: v for k, v in res.items() if k != "differ"},
+             "differ": res["differ"], "tokens": tokens.tolist(),
+             "argmax": x["logits"].argmax(-1).tolist(),
+             "kept": kept.tolist()}
+    report["probe B=3 V=1000 min_p=2"] = probe
+    bad += [f"probe: {k} rows {v['rows']}" for k, v in res["differ"].items()]
+    if probe["tokens"] != probe["argmax"] or any(probe["kept"]):
+        bad.append(f"probe: tokens {probe['tokens']} kept {probe['kept']}, "
+                   f"not the argmax {probe['argmax']} with nothing kept")
+    print(f"degenerate probe B=3 V=1000 k_cap 64 min_p=2: tokens "
+          f"{probe['tokens']} (argmax {probe['argmax']}), kept "
+          f"{probe['kept']}, {len(probe['rows'])} checks "
+          f"{'equal' if not res['differ'] else 'differ'}")
+    return report, bad
+
+
+def degenerate_batch(V):
+    """Phase 14's batch: ``DEGENERATE_BATCH`` over synth_requests' prompts
+    and sampling, each degenerate request followed by its greedy twin;
+    returns the requests and the (degenerate, twin) index pairs."""
+    import dataclasses
+    from repro_torch.launch.serve import synth_requests
+    base = synth_requests(4, V, DEGENERATE_NEW, seed=0)
+    reqs, pairs = [], []
+    for prompt, filters in DEGENERATE_BATCH:
+        r = copy.deepcopy(base[prompt])
+        if filters is not None:
+            r.sampling = dataclasses.replace(r.sampling, **filters)
+            twin = copy.deepcopy(base[prompt])
+            twin.sampling = dataclasses.replace(twin.sampling, greedy=True)
+            pairs.append((len(reqs), len(reqs) + 1))
+            reqs += [r, twin]
+        else:
+            reqs.append(r)
+    for i, r in enumerate(reqs):
+        r.request_id = i
+    return reqs, pairs
+
+
+def degenerate_streams(dev, card):
+    """Phase 14 (b), (c): full-width smollm-360m with ``fused`` on the
+    contiguous and the paged cache (a pool that holds the batch, so no
+    request is preempted and twins compute alike) serves a batch of 8
+    mixing ``top_p = 0`` and ``min_p = 2`` requests with their greedy twins
+    and ordinary ones; where nothing is kept the draw is the top penalised
+    logit, so each degenerate stream must equal its twin's. The engine then
+    serves a later batch on the same CUDA context. (c) the gateway over one
+    such replica: ``"top_p": 0`` and ``"min_p": 2`` requests get 200 and
+    their greedy twin's stream."""
+    import torch
+    from repro_torch.gateway import ReplicaFleet
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch, synth_requests
+    V, out, params = V_MAIN, {}, None
+    for cache, kw in (("contiguous", {}),
+                      ("paged", dict(cache="paged", block_size=16))):
+        eng = engine("fused", dev, params=params, **kw)
+        params = eng.params
+        serve_batch(eng, synth_requests(2, V, 2, rng_seed=99, seed=0))
+        reqs, pairs = degenerate_batch(V)
+        ops.reset_launch_counts()
+        rep = serve_batch(eng, reqs)
+        counts = ops.launch_counts()
+        for r in reqs:
+            assert r.finish_reason == "length" and \
+                len(r.output) == DEGENERATE_NEW, \
+                (cache, r.request_id, r.finish_reason, len(r.output))
+        twins = [{"request": a, "sampling": {
+            k: getattr(reqs[a].sampling, k) for k in ("top_k", "top_p",
+                                                      "min_p")},
+            "equal": reqs[a].output == reqs[b].output,
+            "tokens": reqs[a].output, "twin": reqs[b].output}
+            for a, b in pairs]
+        later = synth_requests(8, V, 4, rng_seed=5, seed=1)
+        serve_batch(eng, later)
+        torch.cuda.synchronize()
+        assert all(r.finish_reason == "length" and len(r.output) == 4
+                   for r in later), "the later batch did not finish"
+        eng.close()
+        out[cache] = {"report": rep, "launches": counts, "twins": twins,
+                      "later_batch": "served"}
+        for t in twins:
+            print(f"degenerate {cache}: request {t['request']} "
+                  f"{t['sampling']} stream {'==' if t['equal'] else '!='} "
+                  f"its greedy twin's ({len(t['tokens'])} tokens)")
+        print(f"degenerate {cache}: {rep['requests']} requests, TPOT p50 "
+              f"{rep['tpot_p50_ms']:.2f} ms, launches {counts}; a later "
+              f"batch of 8 served on the same context [{card}]")
+        assert counts["fused_sample"] > 0, counts
+        assert all(t["equal"] for t in twins), \
+            f"{cache}: a degenerate stream differs from its greedy twin's"
+
+    fleet = ReplicaFleet([engine("fused", dev, params=params)], capacity=4)
+    common = {"prompt": GATEWAY_PROMPTS[0], "max_tokens": 8,
+              "temperature": 0.8, "repetition_penalty": 1.1, "seed": 5}
+    payloads = [dict(common, top_p=0), dict(common, min_p=2),
+                dict(common, greedy=True)]
+    results, _, _ = gateway_run(fleet, GATEWAY_PROMPTS, payloads, warm=1)
+    out["gateway"] = [{"payload": {k: v for k, v in p.items()
+                                   if k in ("top_p", "min_p", "greedy")},
+                       "status": r.status, "tokens": r.tokens}
+                      for p, r in zip(payloads, results)]
+    for g in out["gateway"]:
+        print(f"degenerate gateway {g['payload']}: HTTP {g['status']}, "
+              f"tokens {g['tokens']}")
+    assert all(r.status == 200 and r.error is None for r in results), \
+        [(r.status, r.error) for r in results]
+    assert results[0].tokens == results[1].tokens == results[2].tokens, \
+        "a degenerate wire stream differs from its greedy twin's"
+    return out
+
+
+def degenerate_phase(dev, card):
+    """Phase 14: (a) the kernels on the fixture, (b) the served streams,
+    (c) the gateway; raises after reporting if any check differs."""
+    t0 = time.perf_counter()
+    kernels, bad = degenerate_kernels(dev)
+    out = {"kernels": kernels}
+    out.update(degenerate_streams(dev, card))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 14 took {out['seconds']:.1f} s")
+    assert not bad, "kernels differ from their plain versions on " \
+        "degenerate rows: " + "; ".join(bad)
+    return out
+
+
+def degenerate_only(dev, card):
+    """``--degenerate-only``: phase 14 alone; prints one JSON line."""
+    out = degenerate_phase(dev, card)
+    print(json.dumps({"degenerate_only": {
+        "card": card, "seconds": out["seconds"],
+        "gateway": out["gateway"],
+        "twins": {c: out[c]["twins"] for c in ("contiguous", "paged")}}}))
+    return 0
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4506,6 +4711,11 @@ def main() -> int:
                          "program on a one-rank NCCL mesh and four gloo "
                          "ranks on this card, the dry-run on fake CUDA "
                          "tensors, the examples) only; prints one JSON line")
+    ap.add_argument("--degenerate-only", action="store_true",
+                    help="build the kernels and run phase 14 (degenerate "
+                         "decision rows: the kernels on the fixture, the "
+                         "served streams, the gateway) only; prints one "
+                         "JSON line")
     ap.add_argument("--dist-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mt-rank", type=int, default=None,
@@ -4594,6 +4804,8 @@ def main() -> int:
         return tp_only(dev, card)
     if args.mesh_train_only:
         return mesh_train_only(dev, card)
+    if args.degenerate_only:
+        return degenerate_only(dev, card)
 
     t_phase = time.perf_counter()
 
@@ -4626,6 +4838,7 @@ def main() -> int:
     dist_runs = dist_phase(dev, card)          # prints its own seconds
     tp_runs = tp_phase(dev, card)              # prints its own seconds
     mt_runs = mesh_train_phase(dev, card)      # prints its own seconds
+    degenerate = degenerate_phase(dev, card)   # prints its own seconds
 
     launch_of = {"penalty_scale": counts["shvs"]["penalty_scale"],
                  "shvs_masses": counts["shvs"]["shvs_masses"],
@@ -4653,6 +4866,7 @@ def main() -> int:
               "families": family_runs, "family_launches": family_counts,
               "training": train_runs, "distribution": dist_runs,
               "tensor_parallel": tp_runs, "mesh_train": mt_runs,
+              "degenerate": degenerate,
               "fused_large_k": large_k,
               "gumbel_sass": sass,
               "gumbel_issue_floor": floor}

@@ -13,7 +13,9 @@ the batch is laid out. All functions operate on penalized logits ``z``
 (B, V) float32 with per-row (B,) controls. Sorts are stable and
 descending, so equal logits resolve to the LOWEST vocabulary id, as
 ``lax.top_k`` and ``argsort(stable=True)`` do in the reference
-(``torch.topk`` promises no order among equal values).
+(``torch.topk`` promises no order among equal values). A NaN goes where
+the reference's sort puts it: last in :func:`filter_mask_reference`
+(``jnp.argsort(-z)``), first in :func:`top_k_stable` (``lax.top_k``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.ref import argsort_desc
 
 NEG_INF = -1e30
 
@@ -97,9 +101,11 @@ def _inverse_cdf_draw(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 def filter_mask_reference(z: torch.Tensor, params: SamplingParams
                           ) -> torch.Tensor:
     """Boolean mask (B, V) of tokens allowed by top-k ∧ top-p ∧ min-p, by a
-    full sort (the O(V log V) baseline the paper optimizes away)."""
+    full sort (the O(V log V) baseline the paper optimizes away). The
+    sort is the reference's ``jnp.argsort(-z)``: a NaN ranks after -inf,
+    so a top-k cuts NaNs first (:func:`argsort_desc`)."""
     B, V = z.shape
-    order = torch.sort(z, dim=-1, descending=True, stable=True).indices
+    order = argsort_desc(z)
     ranks = torch.empty_like(order).scatter_(
         1, order, torch.arange(V, device=z.device).expand(B, V))
     # top-k first (sequential filter composition, HF semantics)

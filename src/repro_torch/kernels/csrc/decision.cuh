@@ -23,6 +23,21 @@ __device__ __forceinline__ float from_ord(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
 }
 
+// max(x, lo) and min(x, hi) that keep a NaN x, as torch.clamp and
+// jnp.maximum / jnp.minimum do (fmaxf and fminf drop it).
+__device__ __forceinline__ float clamp_lo(float x, float lo) {
+  return x < lo ? lo : x;
+}
+
+__device__ __forceinline__ float clamp_hi(float x, float hi) {
+  return x > hi ? hi : x;
+}
+
+// max(a, b) where a NaN in either wins, as torch.amax and jnp.max do.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (b > a || b != b) ? b : a;
+}
+
 // Packed key: value order in the high word, the inverted column in the low
 // word, so the largest key is "largest value, lowest column first".
 __device__ __forceinline__ uint64_t sort_key(float v, int j) {
@@ -65,7 +80,7 @@ __device__ __forceinline__ float penalize(float z, int cp, int co, float rep,
   z = z > 0.0f ? z / f : z * f;
   z = z - pres * (co > 0 ? 1.0f : 0.0f);
   z = z - freq * (float)co;
-  return z / fmaxf(temp, 1e-6f);
+  return z / clamp_lo(temp, 1e-6f);
 }
 
 // Online-softmax state: running max m and exp-sums a, b in the basis
@@ -180,32 +195,39 @@ __device__ __forceinline__ float block_sum(float x, float* scratch) {
 // rank r's state (one round trip through distributed shared memory for
 // all ranks), then lane 0 folds lanes 1..C-1 into lane 0's with
 // mass_merge, in order, so the sums do not depend on which CTA finished
-// first. `state` holds (m, a, b, x) in each CTA; x is merged by max.
-// Returns the merged state in lane 0; call from all of warp 0.
+// first. `state` holds (m, a, b, x) in each CTA, and y after them where
+// `y` is given; x and y are merged by nan_max. Returns the merged state in
+// lane 0; call from all of warp 0.
 __device__ __forceinline__ void cluster_mass_merge(cg::cluster_group& cl,
                                                    float* state, int C,
                                                    float& m, float& a,
-                                                   float& b, float& x) {
+                                                   float& b, float& x,
+                                                   float* y = nullptr) {
   const int lane = threadIdx.x & 31;
   float mr = REPRO_NEG_INF, ar = 0.0f, br = 0.0f, xr = REPRO_NEG_INF;
+  float yr = -INFINITY;
   if (lane < C) {
     const float* s = cl.map_shared_rank(state, lane);
     mr = s[0];
     ar = s[1];
     br = s[2];
     xr = s[3];
+    if (y != nullptr) yr = s[4];
   }
   m = __shfl_sync(REPRO_FULL_MASK, mr, 0);
   a = __shfl_sync(REPRO_FULL_MASK, ar, 0);
   b = __shfl_sync(REPRO_FULL_MASK, br, 0);
   x = __shfl_sync(REPRO_FULL_MASK, xr, 0);
+  float yv = __shfl_sync(REPRO_FULL_MASK, yr, 0);
   for (int r = 1; r < C; ++r) {
     const float m2 = __shfl_sync(REPRO_FULL_MASK, mr, r);
     const float a2 = __shfl_sync(REPRO_FULL_MASK, ar, r);
     const float b2 = __shfl_sync(REPRO_FULL_MASK, br, r);
-    x = fmaxf(x, __shfl_sync(REPRO_FULL_MASK, xr, r));
+    x = nan_max(x, __shfl_sync(REPRO_FULL_MASK, xr, r));
+    if (y != nullptr) yv = nan_max(yv, __shfl_sync(REPRO_FULL_MASK, yr, r));
     mass_merge(m, a, b, m2, a2, b2);
   }
+  if (y != nullptr) *y = yv;
 }
 
 // How shvs.cu, fused.cu and gumbel.cu split a row of `cols` columns over a

@@ -65,6 +65,17 @@
 // The epilogue keeps nothing per key: a weight exp(v_i - v_0) is
 // recomputed from the key wherever it is needed (the same bits each time),
 // so it takes any K.
+//
+// Degenerate rows. The plain version's buffer starts as K entries (-inf,
+// Vp), and its stable sort puts a NaN after -inf and the buffer before the
+// tile, so no -inf or NaN column ever enters it: it holds the K best
+// values above -inf, then (-inf, Vp) entries. Here such columns take an
+// order below FUSED_ORD_LOW (fused_ord), below every value above -inf, and
+// such an entry decodes to (-inf, Vp), which clamps to V - 1 like the
+// plain version's.
+// The draw's argmax is jnp.argmax's: the first NaN, else the first
+// maximum, so where nothing is kept (every score -inf) it is entry 0; the
+// clamps keep a NaN mass, as torch.clamp does.
 #include <mutex>
 
 #include "decision.cuh"
@@ -75,6 +86,26 @@
 #define FUSED_MAX_ROWS 65535
 #define FUSED_HIST_BYTES (FUSED_WARPS * 256 * 4)
 #define FUSED_DRAW_SALT 0x46555345u
+
+// The list's order of a value: ord_bits plus FUSED_ORD_LIFT, mod 2^32.
+// ord_bits puts every value above -inf in [0x00800000, 0xFF800000] and
+// -inf and the NaNs outside it; the lift moves that range to
+// [FUSED_ORD_LOW, 0xFFFFFFFF] in order and wraps -inf and every NaN below
+// FUSED_ORD_LOW (the plain version's (-inf, Vp) entries): one add.
+#define FUSED_ORD_LIFT 0x007FFFFFu
+#define FUSED_ORD_LOW 0x00FFFFFFu
+
+__device__ __forceinline__ uint32_t fused_ord(float v) {
+  return ord_bits(v) + FUSED_ORD_LIFT;
+}
+
+// Score (b, i) beats (best, best_i) in an argmax where a NaN wins and the
+// lowest index wins among equals and among NaNs.
+__device__ __forceinline__ bool score_wins(float b, int i, float best,
+                                           int best_i) {
+  if (b != b) return best == best || i < best_i;
+  return best == best && (b > best || (b == best && i < best_i));
+}
 
 __device__ __forceinline__ uint64_t key_at(uint32_t ord, int j) {
   return ((uint64_t)ord << 32) | (uint64_t)(0xFFFFFFFFu - (uint32_t)j);
@@ -192,12 +223,12 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
   const int v0 = c0 + head, v1 = v0 + 4 * nvec;
   for (int j = c0 + tid; j < v0; j += FUSED_THREADS) {
     const float v = penalize(zr[j], cpr[j], cor[j], rp, pr, fr, tm);
-    key32[j - c0] = ord_bits(v);
+    key32[j - c0] = fused_ord(v);
     mass_add(m, s_tot, s_hot, v, true, hot[j] != 0);
   }
   for (int j = v1 + tid; j < r1; j += FUSED_THREADS) {
     const float v = penalize(zr[j], cpr[j], cor[j], rp, pr, fr, tm);
-    key32[j - c0] = ord_bits(v);
+    key32[j - c0] = fused_ord(v);
     mass_add(m, s_tot, s_hot, v, true, hot[j] != 0);
   }
   {
@@ -214,13 +245,13 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
                           penalize(q.w, a.w, b.w, rp, pr, fr, tm)};
       const int j = v0 + 4 * i;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) key32[j - c0 + k] = ord_bits(v[k]);
+      for (int k = 0; k < 4; ++k) key32[j - c0 + k] = fused_ord(v[k]);
       mass_add4(m, s_tot, s_hot, v, 0xFu, hot_bits4(hot, j));
     }
   }
   if (r1 < c1) {
     const float pad = penalize(REPRO_NEG_INF, 0, 0, rp, pr, fr, tm);
-    const uint32_t pad_ord = ord_bits(pad);
+    const uint32_t pad_ord = fused_ord(pad);
     for (int j = r1 + tid; j < c1; j += FUSED_THREADS) {
       key32[j - c0] = pad_ord;
       mass_add(m, s_tot, s_hot, pad, true, false);
@@ -416,21 +447,30 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
   s_tot = fin[0];
   s_hot = fin[1];
   const uint64_t* keys = list;     // the row's K largest keys, descending
+  // entry i's value and column; an order below FUSED_ORD_LOW is the plain
+  // version's (-inf, Vp)
+  auto val = [&](int i) {
+    const uint32_t o = (uint32_t)(keys[i] >> 32);
+    return o < FUSED_ORD_LOW ? -INFINITY : from_ord(o - FUSED_ORD_LIFT);
+  };
+  auto col = [&](int i) {
+    return (uint32_t)(keys[i] >> 32) < FUSED_ORD_LOW
+               ? (uint32_t)Vp
+               : 0xFFFFFFFFu - (uint32_t)keys[i];
+  };
 
   // truncation-first filter + restricted Gumbel-max draw
-  const float v0k = from_ord((uint32_t)(keys[0] >> 32));
+  const float v0k = val(0);
   const int tk = top_k[row];
   const float tp = top_p[row], mp = min_p[row];
   const int kk = tk > 0 ? (tk < K ? tk : K) : K;
-  auto weight = [&](int i) {
-    return expf(from_ord((uint32_t)(keys[i] >> 32)) - v0k);
-  };
+  auto weight = [&](int i) { return expf(val(i) - v0k); };
   float part = 0.0f;
   for (int i = tid; i < K; i += FUSED_THREADS)
     part += weight(i) * (i < kk ? 1.0f : 0.0f);
   const float subset_total = block_sum(part, scratch);
   const float norm_total = tk > 0 ? subset_total : s_tot;
-  const float denom = fmaxf(norm_total, 1e-30f);
+  const float denom = clamp_lo(norm_total, 1e-30f);
   auto prob = [&](int i) {
     return weight(i) * (i < kk ? 1.0f : 0.0f) / denom;
   };
@@ -459,29 +499,30 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
   }
   const float p0 = prob(0);
   const uint32_t row_seed = (uint32_t)(u_row[row] * 16777216.0f);
+  // a run's entries come in index order, so the first maximum (or NaN)
+  // stays; a run of -inf scores keeps its first entry, and an empty run
+  // holds index K, behind every entry
   float best = -INFINITY;
-  int best_i = 0x7FFFFFFF, nkeep = 0;
+  int best_i = i0, nkeep = 0;
   for (int i = i0; i < i1; ++i) {
     const float p = prob(i);
     c += p;
     const bool keep = i < kk && (c - p) < tp && p >= mp * p0;
     nkeep += keep ? 1 : 0;
-    const uint32_t id = 0xFFFFFFFFu - (uint32_t)keys[i];
-    const float u = hash_uniform(FUSED_DRAW_SALT, row_seed, id);
+    const float u = hash_uniform(FUSED_DRAW_SALT, row_seed, col(i));
     const float g = -logf(-logf(u));
-    const float score =
-        keep ? from_ord((uint32_t)(keys[i] >> 32)) + g : -INFINITY;
-    if (score > best) {
+    const float score = keep ? val(i) + g : -INFINITY;
+    if (score > best || (score != score && best == best)) {
       best = score;
       best_i = i;
     }
   }
-  // argmax, first maximum wins
+  // argmax: the first NaN, else the first maximum wins
   for (int off = 16; off > 0; off >>= 1) {
     const float b2 = __shfl_xor_sync(REPRO_FULL_MASK, best, off);
     const int i2 = __shfl_xor_sync(REPRO_FULL_MASK, best_i, off);
     nkeep += __shfl_xor_sync(REPRO_FULL_MASK, nkeep, off);
-    if (b2 > best || (b2 == best && i2 < best_i)) {
+    if (score_wins(b2, i2, best, best_i)) {
       best = b2;
       best_i = i2;
     }
@@ -497,7 +538,7 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
     best_i = iscratch[0];
     nkeep = iscratch[32];
     for (int w = 1; w < FUSED_WARPS; ++w) {
-      if (scratch[w] > best || (scratch[w] == best && iscratch[w] < best_i)) {
+      if (score_wins(scratch[w], iscratch[w], best, best_i)) {
         best = scratch[w];
         best_i = iscratch[w];
       }
@@ -505,15 +546,18 @@ __global__ void __launch_bounds__(FUSED_THREADS, 3)
     }
     const float mass_at_cap = subset_total / denom;
     const bool explicit_k = tk > 0 && tk <= K;
-    const bool nucleus_ok = tp < 1.0f && mass_at_cap >= fminf(tp, 1.0f) - 1e-7f;
+    const bool nucleus_ok =
+        tp < 1.0f && mass_at_cap >= clamp_hi(tp, 1.0f) - 1e-7f;
     const float p_last = weight(K - 1) / denom;
     const bool minp_ok = mp > 0.0f && p_last < mp * p0;
     const bool full_mass_ok = mass_at_cap >= 1.0f - 1e-7f;
+    // where nothing is kept every score is -inf, and the lowest index
+    // wins the tie: entry 0
     const int win = tm <= 0.0f ? 0 : best_i;
-    const int tok = (int)(0xFFFFFFFFu - (uint32_t)keys[win]);
+    const int tok = (int)col(win);
     tokens[row] = tok < V - 1 ? tok : V - 1;
     exact[row] = (explicit_k || nucleus_ok || minp_ok || full_mass_ok) ? 1 : 0;
-    alpha[row] = s_hot / fmaxf(s_tot, 1e-30f);
+    alpha[row] = s_hot / clamp_lo(s_tot, 1e-30f);
     kept[row] = nkeep;
   }
 }

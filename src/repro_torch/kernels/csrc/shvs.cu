@@ -25,6 +25,17 @@
 // runs give the same bits. The sums are taken in another order than the
 // plain version's, so S_hot and S_tail agree with it to rounding; m and
 // tail_max are maxima and equal it exactly.
+//
+// Degenerate rows follow the plain version too. Its m = max z and
+// tail_max = max over the row with hot columns read as -1e30 keep a NaN
+// and start from -inf, and where m is not finite (a NaN, +inf, or every
+// z = -inf) some exp(z - m) is NaN, which poisons both sums. So the
+// kernel carries the row's max mx beside the online state; a thread takes
+// its maxima with fmaxf (which skips a NaN) and a flag for a NaN (and for
+// a NaN in a cold column), turned into a NaN maximum before the
+// NaN-keeping reductions; the sums are written as NaN where mx is not
+// finite. The online m, which skips a NaN, equals mx wherever mx is
+// finite (and above -1e30).
 #include "decision.cuh"
 
 #define SHVS_THREADS 256
@@ -37,7 +48,7 @@ __global__ void __launch_bounds__(SHVS_THREADS)
                        float* __restrict__ tail_out,
                        float* __restrict__ tmax_out, int V, int chunk) {
   __shared__ float scratch[96];
-  __shared__ float state[4];
+  __shared__ float state[5];
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank(), C = (int)cl.num_blocks();
   const int row = blockIdx.y, tid = threadIdx.x;
@@ -45,7 +56,8 @@ __global__ void __launch_bounds__(SHVS_THREADS)
   const float* zr = z + (size_t)row * V;
 
   float m = REPRO_NEG_INF, s_hot = 0.0f, s_tail = 0.0f;
-  float tmax = REPRO_NEG_INF;
+  float tmax = -INFINITY, mx = -INFINITY;
+  bool nan_any = false, nan_cold = false;
   const int head = head_to_16(zr + c0, c1 - c0);
   const int nvec = (c1 - c0 - head) >> 2;
   const int v0 = c0 + head, v1 = v0 + 4 * nvec;
@@ -56,7 +68,10 @@ __global__ void __launch_bounds__(SHVS_THREADS)
       const float v = zr[j];
       const bool h = hot[j] != 0;
       mass_add(m, s_hot, s_tail, v, h, !h);
-      if (!h) tmax = fmaxf(tmax, v);
+      tmax = fmaxf(tmax, h ? REPRO_NEG_INF : v);
+      mx = fmaxf(mx, v);
+      nan_any |= v != v;
+      nan_cold |= v != v && !h;
     }
   }
   const float4* zv = reinterpret_cast<const float4*>(zr + v0);
@@ -66,30 +81,46 @@ __global__ void __launch_bounds__(SHVS_THREADS)
     const float v[4] = {q.x, q.y, q.z, q.w};
     const unsigned h = hot_bits4(hot, v0 + 4 * i);
     mass_add4(m, s_hot, s_tail, v, h, ~h & 0xFu);
+    mx = fmaxf(mx, fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3])));
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+    for (int k = 0; k < 4; ++k) {
       if (!((h >> k) & 1u)) tmax = fmaxf(tmax, v[k]);
+      nan_any |= v[k] != v[k];
+      nan_cold |= v[k] != v[k] && !((h >> k) & 1u);
+    }
+    if (h) tmax = fmaxf(tmax, REPRO_NEG_INF);
   }
+  if (nan_any) mx = NAN;
+  if (nan_cold) tmax = NAN;
   block_mass_reduce(m, s_hot, s_tail, scratch);
-  for (int off = 16; off > 0; off >>= 1)
-    tmax = fmaxf(tmax, __shfl_xor_sync(REPRO_FULL_MASK, tmax, off));
-  if ((tid & 31) == 0) scratch[tid >> 5] = tmax;
+  for (int off = 16; off > 0; off >>= 1) {
+    tmax = nan_max(tmax, __shfl_xor_sync(REPRO_FULL_MASK, tmax, off));
+    mx = nan_max(mx, __shfl_xor_sync(REPRO_FULL_MASK, mx, off));
+  }
+  if ((tid & 31) == 0) {
+    scratch[tid >> 5] = tmax;
+    scratch[32 + (tid >> 5)] = mx;
+  }
   __syncthreads();
   if (tid == 0) {
-    for (int w = 1; w < SHVS_THREADS / 32; ++w)
-      tmax = fmaxf(tmax, scratch[w]);
+    for (int w = 1; w < SHVS_THREADS / 32; ++w) {
+      tmax = nan_max(tmax, scratch[w]);
+      mx = nan_max(mx, scratch[32 + w]);
+    }
     state[0] = m;
     state[1] = s_hot;
     state[2] = s_tail;
     state[3] = tmax;
+    state[4] = mx;
   }
   cl.sync();
   if (rank == 0 && tid < 32) {
-    cluster_mass_merge(cl, state, C, m, s_hot, s_tail, tmax);
+    cluster_mass_merge(cl, state, C, m, s_hot, s_tail, tmax, &mx);
     if (tid == 0) {
-      m_out[row] = m;
-      hot_out[row] = s_hot;
-      tail_out[row] = s_tail;
+      const bool finite = isfinite(mx);
+      m_out[row] = mx;
+      hot_out[row] = finite ? s_hot : NAN;
+      tail_out[row] = finite ? s_tail : NAN;
       tmax_out[row] = tmax;
     }
   }

@@ -109,17 +109,35 @@ def streaming_mass_update(m, s_tot, s_hot, zs, hot_f):
     return m_new, s_tot, s_hot
 
 
+def argsort_desc(x):
+    """The reference's ``jnp.argsort(-x, stable=True)`` along the last
+    axis: values descending, equal values in index order, and every NaN
+    (of either sign) after every number, -inf included, NaNs in index
+    order; -0 and +0 tie. (torch's descending sort puts NaN first.) The
+    values are sorted with NaN read as -inf, then a stable sort on
+    ``isnan`` moves the NaNs behind the rest."""
+    nan = torch.isnan(x)
+    order = torch.sort(torch.where(nan, float("-inf"), x), dim=-1,
+                       descending=True, stable=True).indices
+    last = torch.sort(nan.gather(-1, order).to(torch.uint8), dim=-1,
+                      stable=True).indices
+    return order.gather(-1, last)
+
+
 def topk_merge(vals, idx, tile_vals, tile_idx):
     """Merge a vocab tile into the running per-row top-K buffer.
 
-    Buffer-first concatenation + a stable descending sort: ties resolve to
-    the LOWEST vocabulary index, matching ``argmax`` tie-breaking.
+    Buffer-first concatenation + the reference's stable descending order
+    (:func:`argsort_desc`): ties resolve to the LOWEST vocabulary index,
+    matching ``argmax`` tie-breaking, and a NaN ranks below -inf. So the
+    buffer's initial (-inf, Vp) entries outrank every NaN and every -inf
+    column: the buffer holds the K best values above -inf, then (-inf,
+    Vp) entries, which decode to V - 1 through the final clamp.
     vals/idx: (bb, K); tile_vals/tile_idx: (bb, bv).
     """
     cat_v = torch.cat([vals, tile_vals], -1)
     cat_i = torch.cat([idx, tile_idx], -1)
-    order = torch.sort(cat_v, dim=-1, descending=True,
-                       stable=True).indices[:, :vals.shape[-1]]
+    order = argsort_desc(cat_v)[:, :vals.shape[-1]]
     return cat_v.gather(-1, order), cat_i.gather(-1, order)
 
 

@@ -22,6 +22,8 @@ from repro_torch.kernels import (fused_kernel, gumbel_kernel, penalty_kernel,
                                  ref, shvs_kernel)
 from repro_torch.launch.serve import synth_requests
 from repro_torch.models.model import Model
+from torch_degenerate_rows import (CASES as DEGENERATE, FUSED, case,
+                                   kernel_rows, probe_inputs, tensors)
 
 pytestmark = pytest.mark.gpu
 
@@ -76,6 +78,33 @@ def test_kernels_match_plain_versions(B, V, hot):
     for i in (0, 1, 3):                  # tokens, exact, kept
         assert torch.equal(got[i], want[i])
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("B,V", [(8, 49152), (64, 151936), (8, 50021)])
+@pytest.mark.parametrize("name", DEGENERATE)
+def test_kernels_match_plain_versions_on_degenerate_rows(name, B, V):
+    """The degenerate rows of ``torch_degenerate_rows`` (the CPU tests hold
+    the plain versions to the reference on them): all four kernels, and
+    ``fused_sample`` at k_cap 256 and 2048 on both paths, equal their
+    plain versions on every row, with no CUDA error."""
+    dev = _cuda()
+    res = kernel_rows(tensors(case(name, B, V, seed=B + V), dev))
+    assert not res["differ"], res["differ"]
+
+
+def test_fused_sample_probe_keeps_nothing_and_draws_in_bounds():
+    """ROADMAP Fault 10's probe (B = 3, V = 1000, k_cap 64, min_p = 2):
+    nothing is kept, and the draw is the top logit, as in the plain
+    version, where the kernel once read past its list."""
+    dev = _cuda()
+    x = probe_inputs(dev)
+    res = kernel_rows(x, k_caps=(64,))
+    assert not res["differ"], res["differ"]
+    tokens, _, _, kept = fused_kernel.fused_sample(
+        *[x[k] for k in FUSED], k_cap=64, block_v=2048)
+    torch.cuda.synchronize()
+    assert kept.tolist() == [0, 0, 0]
+    assert tokens.tolist() == x["logits"].argmax(-1).tolist()
 
 
 def _hazard_rows(x, V, chunk, C):
