@@ -104,6 +104,7 @@ from repro_torch.engine.scheduler import ChunkTask, Scheduler
 from repro_torch.models.attention import flat_block_indices, scatter_block_kv
 from repro_torch.models.model import Model
 from repro_torch.obs import EngineMetrics, StepRecord, Telemetry
+from repro_torch.obs import tracer as obs_tracer
 
 
 @dataclass
@@ -153,6 +154,21 @@ def locked_api(fn):
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
         with self._api_lock:
+            return fn(self, *args, **kwargs)
+    return wrapper
+
+
+def traced_api(fn):
+    """Install the engine's tracer, when it is enabled, as this thread's
+    ``obs.tracer.current()`` for the call, so the model's forward records
+    its spans (``moe_route``) into it."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        if not self.tracer.enabled:
+            return fn(self, *args, **kwargs)
+        with obs_tracer.use(self.tracer):
             return fn(self, *args, **kwargs)
     return wrapper
 
@@ -274,9 +290,11 @@ def prefill_new_rows(eng, new_requests: List[Request], step_idx: int):
     sp_rows = SlotParams(P, V, dev)
     for i, r in enumerate(new_requests):
         sp_rows.set_row(i, r.sampling)
-    first, rows_pstate, _ = eng.decision.step(
-        logits, rows_pstate, sp_rows.as_params(), step_idx,
-        rng_tags=(rids, bases), logit_bias=sp_rows.bias_array())
+    with eng.tracer.span("device_sample", device=dev, program="prefill",
+                         rows=P, step=step_idx):
+        first, rows_pstate, _ = eng.decision.step(
+            logits, rows_pstate, sp_rows.as_params(), step_idx,
+            rng_tags=(rids, bases), logit_bias=sp_rows.bias_array())
     return first, rows_cache, rows_pstate, lens, bases, rids
 
 
@@ -465,9 +483,12 @@ class Engine:
     def _decode_impl(self, params, cache, pstate, last_tokens, sparams, bias,
                      nonces, pos, step, active):
         logits, cache = self._forward_impl(params, cache, last_tokens, active)
-        tokens, pstate, stats = self.decision.step(
-            logits, pstate, sparams, step, active=active,
-            rng_tags=(nonces, pos), logit_bias=bias)
+        with self.tracer.span("device_sample", device=self.device,
+                              program="decode", rows=logits.shape[0],
+                              step=step):
+            tokens, pstate, stats = self.decision.step(
+                logits, pstate, sparams, step, active=active,
+                rng_tags=(nonces, pos), logit_bias=bias)
         tokens = torch.where(active, tokens, 0)
         return tokens, cache, pstate, stats
 
@@ -488,10 +509,13 @@ class Engine:
         prompt sample their first token (position 0) in the same program."""
         logits, cache = self.model.prefill_chunk(params, toks, cache, counts,
                                                  mask)
-        tokens, pstate, _ = self.decision.step(
-            logits, pstate, sparams, step, active=finish,
-            rng_tags=(nonces, np.zeros(nonces.shape, np.int32)),
-            logit_bias=bias)
+        with self.tracer.span("device_sample", device=self.device,
+                              program="chunk", rows=logits.shape[0],
+                              step=step):
+            tokens, pstate, _ = self.decision.step(
+                logits, pstate, sparams, step, active=finish,
+                rng_tags=(nonces, np.zeros(nonces.shape, np.int32)),
+                logit_bias=bias)
         tokens = torch.where(finish, tokens, 0)
         last_tokens = torch.where(finish, tokens, last_tokens)
         return tokens, last_tokens, cache, pstate
@@ -634,6 +658,7 @@ class Engine:
         return len(self._pending)
 
     @locked_api
+    @traced_api
     def step(self):
         """One engine iteration. Returns the StepRecord committed this call
         (lagged by one step in overlapped mode), or {} if none was."""
@@ -665,33 +690,10 @@ class Engine:
             # mutates _nonce/_pos/_sp after dispatch
             active = to_device(plan.active_slots, self.device)
             t_disp = time.perf_counter()
-            if self._host:
-                # §13: enqueue the forward-only step and the logits' copy
-                # to pinned memory behind it, and hand the copy to the pool
-                # — the workers, not this thread, wait for the device
-                logits, self.cache = self._forward_impl(
-                    self.params, self.cache, self.last_tokens, active)
-                ticket = self.client.submit(
-                    HostCopy(logits), self.pstate, self._sp.host_params(),
-                    self._sp.host_bias(), self._nonce.copy(),
-                    self._pos.copy(), plan.step, plan.active_slots.copy())
-                self._pending.append(_Pending(
-                    kind="host", ticket=ticket, step=plan.step,
-                    active=plan.active_slots.copy(),
-                    slot_request=list(plan.slot_request),
-                    t_dispatch=t_disp))
-            else:
-                tokens, self.cache, self.pstate, stats = self._decode_impl(
-                    self.params, self.cache, self.pstate, self.last_tokens,
-                    self._sp.as_params(), self._sp.bias_array(),
-                    self._nonce.copy(), self._pos.copy(), plan.step, active)
-                self.last_tokens = tokens
-                self._pending.append(_Pending(
-                    fetch=HostCopy(tokens, torch.stack(
-                        [s.float() for s in stats])), step=plan.step,
-                    active=plan.active_slots.copy(),
-                    slot_request=list(plan.slot_request),
-                    t_dispatch=t_disp))
+            with self.tracer.span("dispatch", device=self.device,
+                                  step=plan.step,
+                                  rows=int(plan.active_slots.sum())):
+                self._dispatch(plan, active, t_disp)
             self._pos += plan.active_slots
             if self._paged:
                 self._slot_len += plan.active_slots
@@ -703,7 +705,39 @@ class Engine:
             rec = self._drain_one() or rec
         return rec if rec is not None else {}
 
+    def _dispatch(self, plan, active: torch.Tensor, t_disp: float) -> None:
+        """Enqueue the decode step of ``plan`` and queue its pending
+        result."""
+        if self._host:
+            # §13: enqueue the forward-only step and the logits' copy
+            # to pinned memory behind it, and hand the copy to the pool
+            # — the workers, not this thread, wait for the device
+            logits, self.cache = self._forward_impl(
+                self.params, self.cache, self.last_tokens, active)
+            ticket = self.client.submit(
+                HostCopy(logits), self.pstate, self._sp.host_params(),
+                self._sp.host_bias(), self._nonce.copy(),
+                self._pos.copy(), plan.step, plan.active_slots.copy())
+            self._pending.append(_Pending(
+                kind="host", ticket=ticket, step=plan.step,
+                active=plan.active_slots.copy(),
+                slot_request=list(plan.slot_request),
+                t_dispatch=t_disp))
+        else:
+            tokens, self.cache, self.pstate, stats = self._decode_impl(
+                self.params, self.cache, self.pstate, self.last_tokens,
+                self._sp.as_params(), self._sp.bias_array(),
+                self._nonce.copy(), self._pos.copy(), plan.step, active)
+            self.last_tokens = tokens
+            self._pending.append(_Pending(
+                fetch=HostCopy(tokens, torch.stack(
+                    [s.float() for s in stats])), step=plan.step,
+                active=plan.active_slots.copy(),
+                slot_request=list(plan.slot_request),
+                t_dispatch=t_disp))
+
     @locked_api
+    @traced_api
     def flush(self) -> None:
         """Commit every in-flight iteration and retire what finished."""
         while self._pending:
@@ -962,7 +996,8 @@ class Engine:
                 self._resolve(ent)
             toks_np, stats = ent.res.tokens, None
         else:
-            vals = [v.numpy() for v in ent.fetch.wait()]
+            with self.tracer.span("fetch_wait", step=ent.step):
+                vals = [v.numpy() for v in ent.fetch.wait()]
             toks_np, stats = vals[0], (vals[1] if len(vals) > 1 else None)
         now = time.perf_counter()
         if ent.kind == "first":

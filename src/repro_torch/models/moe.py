@@ -50,6 +50,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import dist
 from repro_torch.models.layers import (apply_mlp, dense_init, init_mlp,
                                       matmul, torch_dtype)
+from repro_torch.obs.tracer import current as current_tracer
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device, stacked: int = 0):
@@ -121,16 +122,17 @@ def _slots(ids_flat, num_experts: int, capacity: int):
     return safe_ids, torch.where(keep, pos, capacity), keep
 
 
-def _dispatch_compute_combine(x_flat, ids, gates, w_gate, w_up, w_down,
+def _dispatch_compute_combine(x_flat, slots, gates, w_gate, w_up, w_down,
                               num_experts: int, capacity: int, act: str):
     """Capacity-bucket dispatch -> per-expert MLP -> weighted combine.
 
-    x_flat: (T, d); ids/gates: (T, k). ids < 0 mean "invalid" and are
-    dropped, as in the reference."""
-    T, k = ids.shape
+    x_flat: (T, d); slots: :func:`_slots` of the (T, k) ids flattened
+    (ids < 0 mean "invalid" and are dropped, as in the reference);
+    gates: (T, k)."""
+    T, k = gates.shape
     d = x_flat.shape[-1]
     gates_flat = gates.reshape(T * k)
-    safe_ids, slot, keep = _slots(ids.reshape(T * k), num_experts, capacity)
+    safe_ids, slot, keep = slots
     x_rep = x_flat[:, None].expand(T, k, d).reshape(T * k, d)
     # out of place, so autograd sees the scatter: the overflow row C takes
     # every dropped pair and is cut off, so their gradient is 0, as with
@@ -169,12 +171,17 @@ def apply_moe(params, x, cfg: ModelConfig, *, train: bool = False):
         x_all = dist.all_gather(x, b_axes, dim=0, tiled=True)
         T = x_all.shape[0] * S
         x_flat = x_all.reshape(T, d)
-        ids, gates, probs = _route(params["router"], x_flat, m.num_experts,
-                                   m.top_k)
         cap = _capacity(T, m.top_k, m.num_experts, m.capacity_factor)
+        # the routing (router, top-k, slot ranks), timed on the device in
+        # an engine's traced step
+        with current_tracer().span("moe_route", device=x_flat.device,
+                                   pairs=T * m.top_k):
+            ids, gates, probs = _route(params["router"], x_flat,
+                                       m.num_experts, m.top_k)
+            slots = _slots(ids.reshape(-1), m.num_experts, cap)
         w_gate, w_up, w_down = _whole_f(params, cfg, ctx)
         out = _dispatch_compute_combine(
-            x_flat, ids, gates, w_gate, w_up, w_down, m.num_experts, cap,
+            x_flat, slots, gates, w_gate, w_up, w_down, m.num_experts, cap,
             cfg.act).reshape(x_all.shape)
         if out.shape[0] != B:
             r0, _ = dist.rows(out.shape[0], b_axes)
@@ -272,9 +279,10 @@ def _apply_moe_ep_scatter(params, x, cfg: ModelConfig, ep: int,
     x_flat = x_all.reshape(b * S, d)
     ids, gates, probs = _route(params["router"], x_flat, m.num_experts,
                                m.top_k)
+    slots = _slots(_local_ids(ids, ctx, e_local).reshape(-1), e_local, cap)
     y = _dispatch_compute_combine(
-        x_flat, _local_ids(ids, ctx, e_local), gates, params["w_gate"],
-        params["w_up"], params["w_down"], e_local, cap, cfg.act)
+        x_flat, slots, gates, params["w_gate"], params["w_up"],
+        params["w_down"], e_local, cap, cfg.act)
     y = y.reshape(b, S, d)
     # sum the f-slice partials + return each token to its home rank
     y = dist.psum_scatter(y, fsdp_ax, dim=0)
@@ -301,9 +309,9 @@ def _apply_moe_ep(params, x, cfg: ModelConfig, ep: int, train: bool):
     x_flat = x.reshape(b * S, d)
     ids, gates, probs = _route(params["router"], x_flat, m.num_experts,
                                m.top_k)
+    slots = _slots(_local_ids(ids, ctx, e_local).reshape(-1), e_local, cap)
     y = _dispatch_compute_combine(
-        x_flat, _local_ids(ids, ctx, e_local), gates, w_gate, w_up, w_down,
-        e_local, cap, cfg.act)
+        x_flat, slots, gates, w_gate, w_up, w_down, e_local, cap, cfg.act)
     y = dist.psum(y, ctx.model_axes)          # combine expert partials
     aux = None
     if train:

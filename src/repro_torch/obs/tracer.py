@@ -27,6 +27,30 @@ argument is made of, one kind per seam —
                       (prefill/decode disaggregation, §18)
     ``handoff_wait``  export stamp → import install of one migrating
                       request — the KV's time in flight between engines
+    ``dispatch``      the host enqueueing one decode step: the forward
+                      and the decision (device placement) or the forward
+                      and the pool's ticket (host placement); ``step``,
+                      ``rows`` (the active rows); device-timed
+    ``fetch_wait``    the host blocking on a device result's copy at the
+                      drain (the step's tokens, a chunk's first tokens);
+                      ``step``
+    ``device_sample`` one call of the device decision plane; ``program``
+                      (``decode`` | ``chunk`` | ``prefill``), ``rows``
+                      (the rows it decides), ``step``; device-timed,
+                      inside ``dispatch`` or ``prefill``
+    ``moe_route``     an MoE layer's router, top-k and slot ranks (not
+                      the scatter, the experts or the combine); ``pairs``
+                      (tokens x k); device-timed, recorded from
+                      ``models/`` through :func:`current`
+
+Device-timed spans (``span(..., device=d)`` with a CUDA ``d``) also
+record a ``torch.cuda.Event`` pair on the device's current stream at
+entry and exit; their ``args`` gain ``device_ms``, the events' elapsed
+time: how long the stream took from the span's first enqueued op to its
+last, waits for the host's launches included. It is resolved when the
+events are read (:meth:`StepTracer.events`) and only once the end event
+has completed; a read before that leaves it out and never blocks. On
+the CPU a device-timed span is a plain host span.
 
 Threading: the engine thread, every pool worker thread, and the gateway
 loop record into the same tracer. ``deque.append`` is atomic under the
@@ -41,9 +65,14 @@ one shared no-op context manager (no allocation) and ``add``/``instant``
 return immediately; instrumentation sites that build f-string names
 guard on :attr:`StepTracer.enabled` so a production engine pays a single
 attribute check per site.
+
+Code that is handed no tracer (the model's functional forward) records
+into :func:`current`: the tracer an engine installed (:func:`use`) for
+the step this thread is running, :data:`NULL_TRACER` otherwise.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -55,7 +84,8 @@ from typing import Callable, Iterable, List, NamedTuple, Optional, Tuple
 SPAN_KINDS = frozenset({
     "prefill", "forward", "stage", "d2h_transfer", "host_sample",
     "pool_stall", "commit", "queue_wait", "decision", "request",
-    "kv_migrate", "handoff_wait",
+    "kv_migrate", "handoff_wait", "dispatch", "fetch_wait",
+    "device_sample", "moe_route",
 })
 
 
@@ -118,6 +148,57 @@ class _Span:
         return False
 
 
+class _DeviceSpan(_Span):
+    """A span that also times its body on the device: a CUDA event pair
+    on the stream that was current at entry."""
+
+    __slots__ = ("_device", "_stream", "_start")
+
+    def __init__(self, tracer: "StepTracer", kind: str, name: Optional[str],
+                 track: Optional[str], args: dict, device):
+        super().__init__(tracer, kind, name, track, args)
+        self._device = device
+
+    def __enter__(self) -> "_DeviceSpan":
+        import torch
+        self._stream = torch.cuda.current_stream(self._device)
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._start.record(self._stream)
+        self._t0 = self._tr.clock()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        import torch
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(self._stream)
+        tr = self._tr
+        tr._record_timed(self._kind, self._name, self._t0, tr.clock(),
+                         self._track, self._args, self._start, end)
+        return False
+
+
+class _Timed:
+    """A device-timed span in the ring: its host event, and its CUDA
+    events until the end event has completed."""
+
+    __slots__ = ("event", "marks")
+
+    def __init__(self, event: SpanEvent, marks):
+        self.event = event
+        self.marks = marks
+
+    def read(self) -> SpanEvent:
+        """The event, with ``device_ms`` once the stream has passed the
+        end event (``query`` never blocks)."""
+        marks = self.marks
+        if marks is not None and marks[1].query():
+            ms = float(marks[0].elapsed_time(marks[1]))
+            self.event = self.event._replace(args=tuple(sorted(
+                self.event.args + (("device_ms", ms),))))
+            self.marks = None
+        return self.event
+
+
 class StepTracer:
     """Flight recorder of :class:`SpanEvent` items in a bounded ring
     buffer (``capacity`` most recent events; oldest evicted first).
@@ -151,11 +232,15 @@ class StepTracer:
 
     # -- recording ------------------------------------------------------------
     def span(self, kind: str, name: Optional[str] = None,
-             track: Optional[str] = None, **args):
+             track: Optional[str] = None, device=None, **args):
         """Context manager timing its body; disabled tracers return the
-        shared :data:`NULL_SPAN` (zero allocation)."""
+        shared :data:`NULL_SPAN` (zero allocation). ``device``: the
+        ``torch.device`` the body enqueues its work on; a CUDA device
+        times the body on the device too (``device_ms``)."""
         if not self._enabled:
             return NULL_SPAN
+        if device is not None and device.type == "cuda":
+            return _DeviceSpan(self, kind, name, track, args, device)
         return _Span(self, kind, name, track, args)
 
     def add(self, kind: str, t0: float, t1: float,
@@ -177,22 +262,36 @@ class StepTracer:
 
     def _record(self, kind: str, name: Optional[str], ph: str, ts: float,
                 dur: float, track: Optional[str], args: dict) -> None:
+        # deque.append with maxlen is atomic under the GIL: engine thread,
+        # pool workers, and the gateway loop record without a lock
+        self._buf.append(self._event(kind, name, ph, ts, dur, track, args))
+
+    def _record_timed(self, kind: str, name: Optional[str], t0: float,
+                      t1: float, track: Optional[str], args: dict,
+                      start, end) -> None:
+        """Record a device-timed span; ``device_ms`` is read later."""
+        self._buf.append(_Timed(self._event(
+            kind, name, "X", t0, max(0.0, t1 - t0), track, args),
+            (start, end)))
+
+    @staticmethod
+    def _event(kind: str, name: Optional[str], ph: str, ts: float,
+               dur: float, track: Optional[str], args: dict) -> SpanEvent:
         if kind not in SPAN_KINDS:
             raise ValueError(f"unknown span kind {kind!r}; taxonomy: "
                              f"{sorted(SPAN_KINDS)} (DESIGN.md §17)")
         if track is None:
             track = threading.current_thread().name
-        # deque.append with maxlen is atomic under the GIL: engine thread,
-        # pool workers, and the gateway loop record without a lock
-        self._buf.append(SpanEvent(
-            kind=kind, name=name or kind, ph=ph, ts=float(ts),
-            dur=float(dur), track=track,
-            args=tuple(sorted(args.items()))))
+        return SpanEvent(kind=kind, name=name or kind, ph=ph, ts=float(ts),
+                         dur=float(dur), track=track,
+                         args=tuple(sorted(args.items())))
 
     # -- reading --------------------------------------------------------------
     def events(self) -> List[SpanEvent]:
-        """Snapshot of the ring buffer, oldest first."""
-        return list(self._buf)
+        """Snapshot of the ring buffer, oldest first; a device-timed span
+        carries ``device_ms`` once its end event has completed."""
+        return [e if type(e) is SpanEvent else e.read()
+                for e in list(self._buf)]
 
     def clear(self) -> None:
         self._buf.clear()
@@ -207,6 +306,28 @@ class StepTracer:
 NULL_TRACER = StepTracer(capacity=1, enabled=False)
 
 
+_CURRENT = threading.local()
+
+
+def current() -> StepTracer:
+    """The tracer installed for this thread (:func:`use`), else
+    :data:`NULL_TRACER`: the seam through which code that is handed no
+    tracer (``models/``) records into the engine's."""
+    return getattr(_CURRENT, "tracer", NULL_TRACER)
+
+
+@contextlib.contextmanager
+def use(tracer: StepTracer):
+    """Install ``tracer`` as this thread's :func:`current` for the body;
+    the previous one is restored on exit, an exception's included."""
+    prev = current()
+    _CURRENT.tracer = tracer
+    try:
+        yield tracer
+    finally:
+        _CURRENT.tracer = prev
+
+
 def merge_events(sources: Iterable[StepTracer]) -> List[SpanEvent]:
     """Events from several tracers on one clock, sorted by start time."""
     out: List[SpanEvent] = []
@@ -217,4 +338,4 @@ def merge_events(sources: Iterable[StepTracer]) -> List[SpanEvent]:
 
 
 __all__ = ["SPAN_KINDS", "SpanEvent", "StepTracer", "NULL_TRACER",
-           "NULL_SPAN", "merge_events"]
+           "NULL_SPAN", "merge_events", "current", "use"]

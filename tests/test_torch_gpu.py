@@ -7,6 +7,7 @@ them:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from repro_torch.kernels import (fused_kernel, gumbel_kernel, penalty_kernel,
                                  ref, shvs_kernel)
 from repro_torch.launch.serve import synth_requests
 from repro_torch.models.model import Model
+from repro_torch.obs import StepTracer, Telemetry
 from torch_degenerate_rows import (CASES as DEGENERATE, FUSED, case,
                                    kernel_rows, probe_inputs, tensors)
 
@@ -632,6 +634,56 @@ def test_moe_decode_steps_make_no_synchronising_call():
         torch.cuda.set_sync_debug_mode("default")
     eng.flush()
     eng.close()
+
+
+def test_device_timed_spans_on_cuda():
+    """Reduced granite with the tracer on: the steady decode steps and the
+    reads of the tracer never block the host; once the stream is done
+    every device-timed span has a positive ``device_ms``, no larger than
+    its enclosing ``dispatch``'s; a read before a span's end event has
+    completed leaves ``device_ms`` unset rather than waiting."""
+    dev = _cuda()
+    cfg = get_arch("granite-moe-1b-a400m").reduced()
+    eng = Engine(cfg, Model(cfg).init(seed=0, device=dev), EngineConfig(
+        max_batch=4, max_seq_len=64, algorithm="shvs",
+        shvs=SHVSConfig(hot_size=128), k_cap=64), device=dev,
+        telemetry=Telemetry(tracer=StepTracer(capacity=1 << 14)))
+    eng.submit(synth_requests(4, cfg.vocab_size, 12, seed=0))
+    eng.step()                  # admission reads the first tokens back
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            eng.step()
+            eng.tracer.events()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.flush()
+    eng.close()
+    torch.cuda.synchronize(dev)
+    evs = eng.tracer.events()
+    timed = [e for e in evs
+             if e.kind in ("dispatch", "device_sample", "moe_route")]
+    kinds = {e.kind for e in timed}
+    assert kinds == {"dispatch", "device_sample", "moe_route"}
+    ms = lambda e: dict(e.args)["device_ms"]
+    assert all(ms(e) > 0 for e in timed)
+    for d in [e for e in timed if e.kind == "dispatch"]:
+        inner = [e for e in timed if e is not d and d.ts <= e.ts
+                 and e.end <= d.end]
+        assert len(inner) == 1 + cfg.num_layers     # decision + routing
+        assert all(ms(e) <= ms(d) for e in inner)
+
+    tr = StepTracer()
+    with tr.span("device_sample", device=dev, program="decode", rows=1,
+                 step=0):
+        torch.cuda._sleep(int(2e8))      # ~0.1 s of the stream
+    t0 = time.perf_counter()
+    (early,) = tr.events()
+    took = time.perf_counter() - t0
+    assert "device_ms" not in dict(early.args) and took < 0.05
+    torch.cuda.synchronize(dev)
+    (late,) = tr.events()
+    assert dict(late.args)["device_ms"] > 10.0
 
 
 def _train_batch(cfg, B, S, seed):
