@@ -797,11 +797,15 @@ def with_capacity(cfg, factor):
 
 
 @contextlib.contextmanager
-def counted_drops():
+def counted_drops(*engines):
     """Counts the (token, k) pairs every MoE call of the block routes and
     drops past capacity (reads each call's count back: not for timed
-    runs)."""
+    runs). A decode step replayed as a CUDA graph makes no call to count
+    and a capture cannot read one back, so ``engines`` step eagerly (the
+    engine's private switch)."""
     from repro_torch.models import moe
+    for eng in engines:
+        eng._graph_device = False
     slots = moe._slots
     n = {"pairs": 0, "dropped": 0}
 
@@ -2227,7 +2231,7 @@ def family_paged(arch, dev, params, card):
     for name, kw in (("contiguous", {}), ("paged_chunked", PAGED)):
         eng = family_engine(arch, "reference", dev, params, **kw)
         greedy[name] = paged_requests(V, greedy=True, max_new=FAMILY_NEW)
-        with counted_drops() as drops:
+        with counted_drops(eng) as drops:
             serve_batch(eng, greedy[name])
         out[f"greedy_{name}_drops"] = dict(drops)
         eng.close()
@@ -2262,7 +2266,7 @@ def family_pipeline(arch, dev, params, card):
                          cfg, float(cfg.moe.num_experts)))):
         eng = family_engine(c, "shvs", dev, params)
         single = synth_requests(8, V, FAMILY_NEW, greedy=True)
-        with counted_drops() as drops:
+        with counted_drops(eng) as drops:
             serve_batch(eng, single)
         eng.close()
         out[f"single_{label}_drops"] = dict(drops)

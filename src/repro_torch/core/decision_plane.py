@@ -133,7 +133,7 @@ class DecisionPlane:
     # -- the per-iteration decision ------------------------------------------
     def step(self, logits: torch.Tensor, state: pen.PenaltyState,
              params: SamplingParams, step_idx, active=None, allow_mask=None,
-             rng_tags=None, logit_bias=None):
+             rng_tags=None, logit_bias=None, uniforms=None):
         """logits: (B, V) f32 from the LM head. Returns (tokens, state,
         stats).
 
@@ -143,6 +143,10 @@ class DecisionPlane:
         draw per-request uniforms instead of the per-iteration stream
         keyed on ``step_idx``.
         ``logit_bias``: optional (B, V) f32 added before penalties.
+        ``uniforms``: optional (B, 3) f32 tensor of uniforms already drawn
+        (by :meth:`uniforms_tagged`, for the global batch) and on the
+        device; it replaces the host draw, so the step reads nothing from
+        the host and can be captured in a CUDA graph.
         """
         # the global batch: params come for all of it under a mesh
         B = params.temperature.shape[0] if dist.get_ctx().active \
@@ -152,7 +156,9 @@ class DecisionPlane:
             logits = logits + logit_bias
         if allow_mask is not None:
             logits = torch.where(allow_mask, logits, -1e30)
-        if rng_tags is not None:
+        if uniforms is not None:
+            u = uniforms
+        elif rng_tags is not None:
             u = self.uniforms_tagged(*rng_tags, seeds=params.seed,
                                      use_seed=params.use_seed)
         else:
@@ -175,7 +181,7 @@ class DecisionPlane:
                 logits, state, core._replace(**{
                     f: getattr(core, f)[sl] for f in core._fields
                     if getattr(core, f) is not None}),
-                to_device(u[sl], logits.device), self.hot_set,
+                _on(u[sl], logits.device), self.hot_set,
                 k_cap=self.k_cap, vocab=self.vocab_size,
                 hot_cols=self._hot_cols[2])
             if active is not None:
@@ -187,7 +193,7 @@ class DecisionPlane:
         # S1: re-shard the decision plane along the batch axis (the
         # identity without a mesh)
         logits = reshard_for_sampling(logits, mode, B, self.vocab_size)
-        u = to_device(shard_decision_state(u, mode, B), logits.device)
+        u = _on(shard_decision_state(u, mode, B), logits.device)
         core = shard_decision_state(core, mode, B)
         active = shard_decision_state(active, mode, B)
         row0 = dist.rows(B, sampler_axes(mode))[0]
@@ -204,6 +210,13 @@ class DecisionPlane:
             tokens, stats = backend.step(z, core, u, step_idx=step_idx, **kw)
         state = pen.update_histograms(state, tokens, active)
         return gather_tokens(tokens, mode, B), state, stats
+
+
+def _on(u, device) -> torch.Tensor:
+    """Uniforms drawn on the host (an array) or handed in (a tensor) as a
+    tensor on ``device``."""
+    return u.to(device) if isinstance(u, torch.Tensor) else \
+        to_device(u, device)
 
 
 __all__ = ["DecisionPlane", "DecisionStats", "registered_backends"]

@@ -63,6 +63,10 @@ class SamplerBackend:
     #: then passes ``row0=``, the global index of the operand's first row
     #: (non-zero when a rank decides a block of the batch)
     keys_rows: bool = False
+    #: a backend whose draw reads ``step_idx`` as a host integer (a kernel
+    #: argument, not a tensor): a CUDA graph captured at one step would
+    #: replay that step's value, so the engine runs its decision eagerly
+    keys_step: bool = False
 
     def init_state(self, batch: int, vocab_size: int, prompt_tokens=None,
                    prompt_lens=None, device="cpu") -> pen.PenaltyState:
@@ -212,6 +216,7 @@ class GumbelBackend(SamplerBackend):
 
     name = "gumbel"
     keys_rows = True
+    keys_step = True
 
     def __init__(self, *, k_cap: int = 1024, seed: int = 0, **_):
         self.k_cap = k_cap

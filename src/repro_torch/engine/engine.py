@@ -20,6 +20,14 @@ one-step commit lag: a request whose stop condition is in flight gets one
 speculative decode whose token is dropped at commit. With
 ``overlap=False`` every iteration drains immediately.
 
+**CUDA graphs** (``engine/step_graph.py``). On a card with no mesh,
+steps ②③ (the forward graph) and ④⑤ (the decide graph) are each
+captured once, at their second use, and replayed: one launch of the host
+instead of thousands. The graphs read and write the engine's own cache
+leaves and histograms; each step's inputs (active mask, uniforms, last
+tokens) are copied into their buffers on the stream first. Anywhere else
+the step runs eagerly, as it always did.
+
 Determinism: uniforms are keyed on (request-id, output position), drawn
 on the host bit-equal to the reference's ``jax.random`` stream, so each
 request's tokens are the same in overlapped and sequential mode and do
@@ -101,6 +109,8 @@ from repro_torch.engine.paged_cache import (BlockAllocator, PagedCacheConfig,
                                             scatter_slot_kv)
 from repro_torch.engine.request import Request, RequestState
 from repro_torch.engine.scheduler import ChunkTask, Scheduler
+from repro_torch.engine.step_graph import StepGraph, bind, capture
+from repro_torch.models import dist
 from repro_torch.models.attention import flat_block_indices, scatter_block_kv
 from repro_torch.models.model import Model
 from repro_torch.obs import EngineMetrics, StepRecord, Telemetry
@@ -435,6 +445,14 @@ class Engine:
         self._nonce = np.zeros((B,), np.uint32)
         self._pos = np.zeros((B,), np.int32)
         self._pending: List[_Pending] = []
+        # the decode step as CUDA graphs (step_graph.py), on a card: each
+        # variant's graph (None once it has run eagerly and is to be
+        # captured at its next use), the per-step inputs' device buffers
+        # and the capture stream
+        self._graph_device = self.device.type == "cuda"
+        self._graphs: dict = {}
+        self._static: Optional[dict] = None
+        self._capture_stream = None
         self.migrations_in = 0
         self.migrations_out = 0
         self.stats_log: Deque[StepRecord] = deque(
@@ -480,17 +498,15 @@ class Engine:
         cache["len"] = torch.where(active, lens0 + 1, lens0)
         return logits, cache
 
-    def _decode_impl(self, params, cache, pstate, last_tokens, sparams, bias,
-                     nonces, pos, step, active):
-        logits, cache = self._forward_impl(params, cache, last_tokens, active)
-        with self.tracer.span("device_sample", device=self.device,
-                              program="decode", rows=logits.shape[0],
-                              step=step):
-            tokens, pstate, stats = self.decision.step(
-                logits, pstate, sparams, step, active=active,
-                rng_tags=(nonces, pos), logit_bias=bias)
-        tokens = torch.where(active, tokens, 0)
-        return tokens, cache, pstate, stats
+    def _decide_impl(self, logits, pstate, sparams, bias, u, step, active):
+        """The decode step's decision on the device, from its logits and
+        the (B, 3) uniforms already on the device: (tokens, inactive rows
+        0; the new histograms; the stats as one (3,) f32 tensor)."""
+        tokens, pstate, stats = self.decision.step(
+            logits, pstate, sparams, step, active=active, logit_bias=bias,
+            uniforms=u)
+        return (torch.where(active, tokens, 0), pstate,
+                torch.stack([s.float() for s in stats]))
 
     def _prefill_impl(self, params, tokens, true_lens):
         """Prefill a fresh batch (P rows); returns (last-position logits,
@@ -688,12 +704,17 @@ class Engine:
         if dispatched:
             # host arrays are copied on upload or snapshot: the engine
             # mutates _nonce/_pos/_sp after dispatch
-            active = to_device(plan.active_slots, self.device)
+            graphs = self._graphs_on()
+            active = bind(self._statics()["active"], plan.active_slots) \
+                if graphs else to_device(plan.active_slots, self.device)
             t_disp = time.perf_counter()
             with self.tracer.span("dispatch", device=self.device,
                                   step=plan.step,
-                                  rows=int(plan.active_slots.sum())):
-                self._dispatch(plan, active, t_disp)
+                                  rows=int(plan.active_slots.sum())) as span:
+                replayed = self._dispatch(plan, active, t_disp, graphs)
+                span.set(graph=int(replayed))
+            if replayed:
+                self._metrics.graph_replays.inc()
             self._pos += plan.active_slots
             if self._paged:
                 self._slot_len += plan.active_slots
@@ -705,15 +726,16 @@ class Engine:
             rec = self._drain_one() or rec
         return rec if rec is not None else {}
 
-    def _dispatch(self, plan, active: torch.Tensor, t_disp: float) -> None:
+    def _dispatch(self, plan, active: torch.Tensor, t_disp: float,
+                  graphs: bool) -> bool:
         """Enqueue the decode step of ``plan`` and queue its pending
-        result."""
+        result. Returns whether every program of the step was a CUDA
+        graph's replay."""
+        logits, replayed = self._forward(active, graphs)
         if self._host:
             # §13: enqueue the forward-only step and the logits' copy
             # to pinned memory behind it, and hand the copy to the pool
             # — the workers, not this thread, wait for the device
-            logits, self.cache = self._forward_impl(
-                self.params, self.cache, self.last_tokens, active)
             ticket = self.client.submit(
                 HostCopy(logits), self.pstate, self._sp.host_params(),
                 self._sp.host_bias(), self._nonce.copy(),
@@ -723,18 +745,168 @@ class Engine:
                 active=plan.active_slots.copy(),
                 slot_request=list(plan.slot_request),
                 t_dispatch=t_disp))
-        else:
-            tokens, self.cache, self.pstate, stats = self._decode_impl(
-                self.params, self.cache, self.pstate, self.last_tokens,
-                self._sp.as_params(), self._sp.bias_array(),
-                self._nonce.copy(), self._pos.copy(), plan.step, active)
-            self.last_tokens = tokens
-            self._pending.append(_Pending(
-                fetch=HostCopy(tokens, torch.stack(
-                    [s.float() for s in stats])), step=plan.step,
-                active=plan.active_slots.copy(),
-                slot_request=list(plan.slot_request),
-                t_dispatch=t_disp))
+            return replayed
+        with self.tracer.span("device_sample", device=self.device,
+                              program="decode", rows=logits.shape[0],
+                              step=plan.step):
+            tokens, stats, decided = self._decide(logits, active, plan.step,
+                                                  graphs)
+        self.last_tokens = tokens
+        self._pending.append(_Pending(
+            fetch=HostCopy(tokens, stats), step=plan.step,
+            active=plan.active_slots.copy(),
+            slot_request=list(plan.slot_request),
+            t_dispatch=t_disp))
+        return replayed and decided
+
+    # -- the decode step as CUDA graphs (engine/step_graph.py) ---------------
+    def _graphs_on(self) -> bool:
+        """Whether the decode step may run as CUDA graphs: on a CUDA device
+        with no active mesh (a mesh's collectives stay eager)."""
+        return self._graph_device and not dist.get_ctx().active
+
+    def _statics(self) -> dict:
+        """The device buffers of the per-step inputs that every graph of
+        this engine reads: the active mask, the (B, 3) uniforms and the
+        last tokens."""
+        if self._static is None:
+            B, d = self.ecfg.max_batch, self.device
+            self._static = {
+                "active": torch.zeros((B,), dtype=torch.bool, device=d),
+                "u": torch.zeros((B, 3), dtype=torch.float32, device=d),
+                "last": torch.zeros((B,), dtype=torch.int32, device=d)}
+        return self._static
+
+    def _graph(self, key: tuple, owner, make) -> Optional[StepGraph]:
+        """Variant ``key``'s graph (the program, then what the engine
+        observes of it: bias rows, the tracer on), or None where the step
+        is to run eagerly. A variant's first use runs eagerly (it builds
+        and loads what a capture cannot: the kernel library, cuBLAS's
+        handles, the allocator's blocks); its second captures the graph by
+        ``make()``. A graph captured under another ``owner`` (the weights,
+        the sampler backend) is captured again."""
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return None
+        g = self._graphs[key]
+        if g is None or g.owner is not owner:
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            g = self._graphs[key] = make()
+            self._metrics.graph_captures.inc()
+        return g
+
+    def _drop_graphs(self, kind: Optional[str] = None) -> None:
+        """Forget the captured graphs (``kind`` "forward" or "decide":
+        those alone), and the memory they hold; a dropped variant runs
+        eagerly once and is captured again."""
+        for key in [k for k in self._graphs if kind in (None, k[0])]:
+            del self._graphs[key]
+
+    def _forward(self, active: torch.Tensor, graphs: bool):
+        """The decode forward's logits, and whether they came from the
+        forward graph's replay: the cache leaves and ``len`` are the
+        graph's own tensors, written in place. The per-step inputs are
+        in their buffers before a capture, so a capture can run them."""
+        g = None
+        if graphs:
+            self.last_tokens = bind(self._statics()["last"], self.last_tokens)
+            g = self._graph(("forward", obs_tracer.current().enabled),
+                            self.params, self._capture_forward)
+        if g is None:
+            logits, self.cache = self._forward_impl(
+                self.params, self.cache, self.last_tokens, active)
+            return logits, False
+        leaves = g.inputs
+        for name, leaf in leaves.items():
+            bind(leaf, self.cache[name])
+        self.cache = dict(leaves)
+        g.replay()
+        return g.out, True
+
+    def _capture_forward(self) -> StepGraph:
+        """The forward graph over the engine's cache leaves: a leaf the
+        forward returns out of place (``len``, a recurrent state) is
+        copied back into the engine's tensor inside the graph."""
+        cache, st = dict(self.cache), self._statics()
+
+        def body():
+            logits, out = self._forward_impl(self.params, cache, st["last"],
+                                             st["active"])
+            for name, leaf in out.items():
+                if leaf is not cache[name]:
+                    cache[name].copy_(leaf)
+            return logits
+
+        graph, logits = capture(self.device, body, self._capture_stream)
+        return StepGraph(graph, cache, logits, self.params)
+
+    def _decide(self, logits, active: torch.Tensor, step: int,
+                graphs: bool):
+        """The device decision of a decode step: (tokens, stats, whether
+        they came from the decide graph's replay). The uniforms are drawn
+        on the host either way; the histograms are the graph's own
+        tensors, written in place."""
+        sp, bias = self._sp.as_params(), self._sp.bias_array()
+        u = self.decision.uniforms_tagged(self._nonce, self._pos,
+                                          seeds=sp.seed, use_seed=sp.use_seed)
+        u = bind(self._statics()["u"], u) if graphs \
+            else to_device(u, self.device)
+        backend = self.decision._resolve_backend()
+        g = None
+        if graphs and not backend.keys_step:
+            g = self._graph(
+                ("decide", bias is not None, obs_tracer.current().enabled),
+                backend,
+                lambda: self._capture_decide(logits, sp, bias, step,
+                                             backend))
+        if g is None:
+            tokens, self.pstate, stats = self._decide_impl(
+                logits, self.pstate, sp, bias, u, step, active)
+            return tokens, stats, False
+        ins = g.inputs
+        bind(ins[0], logits)
+        for dst, src in zip(ins[1:3], self.pstate):
+            bind(dst, src)
+        self.pstate = pen.PenaltyState(*ins[1:3])
+        # the rows' contract: copied only when a row has changed
+        if g.sources.get("sp") is not sp:
+            for dst, src in zip(ins[3:10], sp):
+                bind(dst, src)
+            g.sources["sp"] = sp
+        if bias is not None and g.sources.get("bias") is not bias:
+            bind(ins[10], bias)
+            g.sources["bias"] = bias
+        g.replay()
+        tokens, stats = g.out
+        return tokens, stats, True
+
+    def _capture_decide(self, logits, sp: SamplingParams, bias, step: int,
+                        backend) -> StepGraph:
+        """The decide graph over the logits it is handed, the engine's
+        histograms and the rows' contract: the histograms the decision
+        returns out of place are copied back inside the graph. ``step``
+        is captured as it is: only a backend that reads it (``keys_step``)
+        could tell, and that one runs eagerly."""
+        st = self._statics()
+        ins = [logits, *self.pstate, *sp[:7]] + \
+            ([bias] if bias is not None else [])
+        params = SamplingParams(*ins[3:10])
+        state = pen.PenaltyState(*ins[1:3])
+
+        def body():
+            tokens, new, stats = self._decide_impl(
+                logits, state, params, ins[10] if bias is not None else None,
+                st["u"], step, st["active"])
+            for dst, src in zip(state, new):
+                if src is not dst:
+                    dst.copy_(src)
+            return tokens, stats
+
+        graph, out = capture(self.device, body, self._capture_stream)
+        g = StepGraph(graph, ins, out, backend)
+        g.sources.update(sp=sp, bias=bias)
+        return g
 
     @locked_api
     @traced_api
@@ -777,6 +949,8 @@ class Engine:
             if getattr(self, "scheduler", None) is not None and \
                     getattr(self, "_pending", None) is not None:
                 self.flush()
+            if getattr(self, "_graphs", None) is not None:
+                self._drop_graphs()
             client = getattr(self, "client", None)
             if client is not None:
                 client.close()
@@ -1081,6 +1255,8 @@ class Engine:
         self.client.set_mode(mode)
         self._host = self.client.is_host
         self.pstate = _move_state(self.pstate, self._pstate_home)
+        # the histograms have moved: the decide graph held the old ones
+        self._drop_graphs("decide")
         self._metrics.mode_host.set(1.0 if self._host else 0.0)
         return True
 
@@ -1095,6 +1271,8 @@ class Engine:
         self.decision.hot_set = build_hot_set(
             self._hot_counts, new_h, self.cfg.vocab_size, device=self.device)
         self.client.refresh()
+        # a new backend: the decide graph captured the old hot set
+        self._drop_graphs("decide")
 
     def _queue_delay_ms(self) -> float:
         """Oldest waiting request's queueing delay; NaN when arrivals carry

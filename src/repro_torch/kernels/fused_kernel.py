@@ -25,8 +25,10 @@ value up to the padded V, by one of two paths (:func:`split` says which):
   rounded up to a power of two keys goes to a workspace of B · C · L keys
   of 8 bytes in device memory, where the lists merge keeping every key.
   The wrapper allocates it and keeps it per device and size (134 MB at
-  B = 64, V = 151936, K = Vp; 4 MB at B = 8, V = 49152). Launches on
-  different streams of one device must not share it.
+  B = 64, V = 151936, K = Vp; 4 MB at B = 8, V = 49152) for the life of
+  the process, so one first made while a CUDA graph is captured lives as
+  long as the graph. Launches on different streams of one device must not
+  share it.
 """
 from __future__ import annotations
 

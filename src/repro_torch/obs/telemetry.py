@@ -96,6 +96,15 @@ class EngineMetrics:
         self.pending_imports = m.gauge(
             "engine_pending_imports",
             "admitted-but-not-installed carried-KV requests")
+        # the decode step as CUDA graphs (engine/step_graph.py): how often
+        # it engages
+        self.graph_replays = m.counter(
+            "engine_decode_graph_replays_total",
+            "decode steps dispatched as CUDA graph replays, every program "
+            "of the step (forward, and the decision on the device)")
+        self.graph_captures = m.counter(
+            "engine_decode_graph_captures_total",
+            "CUDA graphs captured of the decode step's programs")
 
     def observe_step(self, rec: StepRecord) -> None:
         """Fold one committed step's record into the instruments."""

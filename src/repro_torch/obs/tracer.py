@@ -30,7 +30,9 @@ argument is made of, one kind per seam —
     ``dispatch``      the host enqueueing one decode step: the forward
                       and the decision (device placement) or the forward
                       and the pool's ticket (host placement); ``step``,
-                      ``rows`` (the active rows); device-timed
+                      ``rows`` (the active rows), ``graph`` (1 where every
+                      program of the step was a CUDA graph's replay,
+                      ``engine/step_graph.py``); device-timed
     ``fetch_wait``    the host blocking on a device result's copy at the
                       drain (the step's tokens, a chunk's first tokens);
                       ``step``
@@ -41,7 +43,9 @@ argument is made of, one kind per seam —
     ``moe_route``     an MoE layer's router, top-k and slot ranks (not
                       the scatter, the experts or the combine); ``pairs``
                       (tokens x k); device-timed, recorded from
-                      ``models/`` through :func:`current`
+                      ``models/`` through :func:`current` (a decode
+                      step replayed as CUDA graphs records it between
+                      the graphs' replays)
 
 Device-timed spans (``span(..., device=d)`` with a CUDA ``d``) also
 record a ``torch.cuda.Event`` pair on the device's current stream at
@@ -118,6 +122,9 @@ class _NullSpan:
     def __exit__(self, *exc) -> bool:
         return False
 
+    def set(self, **args) -> None:
+        pass
+
 
 NULL_SPAN = _NullSpan()
 
@@ -146,6 +153,11 @@ class _Span:
         tr.add(self._kind, self._t0, tr.clock(), name=self._name,
                track=self._track, **self._args)
         return False
+
+    def set(self, **args) -> None:
+        """Add ``args`` to the span's, from inside its body (a value
+        known only once the body has run)."""
+        self._args.update(args)
 
 
 class _DeviceSpan(_Span):

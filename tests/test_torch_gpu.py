@@ -667,7 +667,11 @@ def test_device_timed_spans_on_cuda():
     assert kinds == {"dispatch", "device_sample", "moe_route"}
     ms = lambda e: dict(e.args)["device_ms"]
     assert all(ms(e) > 0 for e in timed)
-    for d in [e for e in timed if e.kind == "dispatch"]:
+    dispatches = [e for e in timed if e.kind == "dispatch"]
+    # the first decode step runs eagerly, the later ones replay the step's
+    # CUDA graphs (engine/step_graph.py), which record the same spans
+    assert [dict(d.args)["graph"] for d in dispatches] == [0, 1, 1, 1]
+    for d in dispatches:
         inner = [e for e in timed if e is not d and d.ts <= e.ts
                  and e.end <= d.end]
         assert len(inner) == 1 + cfg.num_layers     # decision + routing
