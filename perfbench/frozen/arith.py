@@ -1,15 +1,19 @@
 """The benchmark's own arithmetic of work: model FLOPs per token, the
-decision plane's bytes, and the table of peaks. Plain Python over a
-configuration file's sizes; it imports nothing of the program.
+decision plane's bytes, and the table of peaks, over a configuration
+file's sizes; it imports nothing of the program.
 
-The model FLOPs extend ``launch/hlo_analysis.model_flops_estimate``
-(2 x active parameters a token) with attention's score and value
-products over each token's context and RWKV-6's WKV recurrence.
+The model FLOPs are each family's, in its ``reference/<family>.py``:
+they extend ``launch/hlo_analysis.model_flops_estimate`` (2 x active
+parameters a token) with what the family adds, such as attention's
+score and value products over each token's context or RWKV-6's WKV
+recurrence.
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
+
+from perfbench.harness import spec
 
 PEAKS = json.loads((Path(__file__).with_name("peaks.json")).read_text())
 
@@ -21,50 +25,27 @@ def peaks(device_name: str) -> dict:
     return PEAKS[device_name]
 
 
+def _family(cfg: dict):
+    return spec.load_family("reference", cfg["family"])
+
+
 def matmul_params(cfg: dict) -> int:
     """Weights that one token multiplies through (active experts only):
     embedding lookups cost no FLOPs, the LM head does."""
-    d, V, L = cfg["hidden_size"], cfg["vocab_size"], cfg["num_hidden_layers"]
-    if cfg["family"] == "ssm":
-        r, f = cfg["decay_lora_rank"], cfg["intermediate_size"]
-        # w_r, w_k, w_v, w_g, w_o; the decay LoRA; w_ck, w_cv, w_cr
-        layer = 5 * d * d + 2 * d * r + 2 * d * f + d * d
-    else:
-        hd = cfg["head_dim"]
-        nh, nkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-        attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
-        if cfg.get("num_local_experts"):
-            E, k = cfg["num_local_experts"], cfg["num_experts_per_tok"]
-            ffn = k * 3 * d * cfg["intermediate_size"] + d * E
-        else:
-            ffn = 3 * d * cfg["intermediate_size"]
-        layer = attn + ffn
-    return L * layer + d * V
+    return _family(cfg).matmul_params(cfg)
 
 
 def token_flops(cfg: dict, context: int) -> float:
     """FLOPs of one token whose context (itself included) is ``context``
-    positions: 2 per multiplied weight, plus per attention layer 4 x heads
-    x head size x context (scores and the weighted sum), plus per RWKV-6
-    layer ~6 x d x head size for the WKV state update and read."""
-    f = 2.0 * matmul_params(cfg)
-    L = cfg["num_hidden_layers"]
-    if cfg["family"] == "ssm":
-        f += L * 6.0 * cfg["hidden_size"] * cfg["head_size"]
-    else:
-        f += L * 4.0 * cfg["num_attention_heads"] * cfg["head_dim"] * context
-    return f
+    positions: 2 per multiplied weight, plus the family's own (attention
+    over the context, a recurrence's state update)."""
+    return _family(cfg).token_flops(cfg, context)
 
 
 def prompt_flops(cfg: dict, prompt_len: int) -> float:
     """FLOPs of prefilling a prompt of ``prompt_len`` real tokens (its
     padding is waste and is not counted)."""
-    if cfg["family"] == "ssm":
-        return prompt_len * token_flops(cfg, 0)
-    # token c (1-based) attends over c positions: sum_c c = n (n + 1) / 2
-    return (2.0 * matmul_params(cfg) * prompt_len
-            + cfg["num_hidden_layers"] * 4.0 * cfg["num_attention_heads"]
-            * cfg["head_dim"] * prompt_len * (prompt_len + 1) / 2)
+    return _family(cfg).prompt_flops(cfg, prompt_len)
 
 
 def decision_bytes(rows: int, vocab: int) -> int:

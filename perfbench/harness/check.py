@@ -79,7 +79,7 @@ def judge(cell, weights, log, seed: int, control: bool = False) -> dict:
     the control's readings, compared numbers and verdict)."""
     chk = cell.settings["check"]
     cfg = cell.config
-    reference.models.check_config(cfg)
+    reference.check_config(cfg)
     open_loop = cell.traffic["kind"] == "open_loop"
     if open_loop:
         covered = [s for s in log.served if log.ws <= s.due < log.we]

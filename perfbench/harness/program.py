@@ -1,39 +1,27 @@
 """The one seam between the benchmark and the program under test
 (``repro_torch``): its model configuration built from a configuration
-file, and its serving engine built from a cell's settings."""
+file (by the family's ``families/<family>.py``), and its serving engine
+built from a cell's settings."""
 from __future__ import annotations
 
 import torch
 
+from . import spec
+
 
 def model_config(cfg: dict):
-    """``repro_torch.config.ModelConfig`` of a configuration file."""
-    from repro_torch.config import ModelConfig, MoEConfig, SSMConfig
-    d = cfg["hidden_size"]
-    kw = dict(name=cfg["name"], family=cfg["family"],
-              num_layers=cfg["num_hidden_layers"], d_model=d,
-              d_ff=cfg["intermediate_size"], vocab_size=cfg["vocab_size"],
-              rmsnorm_eps=cfg["rms_norm_eps"],
-              tie_embeddings=cfg["tie_word_embeddings"], dtype=cfg["dtype"],
-              source=cfg["source"])
-    if cfg["family"] == "moe":
-        kw.update(num_heads=cfg["num_attention_heads"],
-                  num_kv_heads=cfg["num_key_value_heads"],
-                  head_dim=cfg["head_dim"], rope_theta=cfg["rope_theta"],
-                  act=cfg["hidden_act"],
-                  moe=MoEConfig(num_experts=cfg["num_local_experts"],
-                                top_k=cfg["num_experts_per_tok"],
-                                d_ff_expert=cfg["intermediate_size"],
-                                capacity_factor=cfg["capacity_factor"]))
-    elif cfg["family"] == "ssm":
-        hs = cfg["head_size"]
-        kw.update(num_heads=d // hs, num_kv_heads=d // hs, head_dim=hs,
-                  act="relu_sq",
-                  ssm=SSMConfig(kind="rwkv6", rwkv_head_size=hs,
-                                decay_lora_rank=cfg["decay_lora_rank"]))
-    else:
-        raise ValueError(f"no program configuration for {cfg['family']!r}")
-    return ModelConfig(**kw)
+    """``repro_torch.config.ModelConfig`` of a configuration file, by its
+    family's ``families/<family>.py``."""
+    return spec.load_family("program", cfg["family"]).model_config(cfg)
+
+
+def model_kwargs(cfg: dict) -> dict:
+    """The ``ModelConfig`` fields every family reads the same way."""
+    return dict(name=cfg["name"], num_layers=cfg["num_hidden_layers"],
+                d_model=cfg["hidden_size"], d_ff=cfg["intermediate_size"],
+                vocab_size=cfg["vocab_size"], rmsnorm_eps=cfg["rms_norm_eps"],
+                tie_embeddings=cfg["tie_word_embeddings"], dtype=cfg["dtype"],
+                source=cfg["source"])
 
 
 def build_engine(cell, weights, seed: int, device, trace: bool):

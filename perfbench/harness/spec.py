@@ -5,23 +5,41 @@
 * ``workloads/<workload>.json``: the cell's engine settings and the
   limits of its correctness comparison;
 * ``configs/<config>.json`` (the file ``configs`` names): the model;
+  its ``family`` key names the model's two files of code:
+* ``families/<family>.py``: the seam into the program, ``model_config``
+  (the program's model configuration of a configuration file) and
+  ``leaves`` (the seeded weights' layout, in fill order);
+* ``reference/<family>.py``: the plain float32 forward (``check_config``,
+  ``output_logits``) and the FLOPs a token (``matmul_params``,
+  ``token_flops``, ``prompt_flops``), importing nothing of the program;
 * ``traffic/<traffic>.json``: the mix's parameters;
 * ``layer_metrics/<family>.py``: the reader of every per-layer metric
   whose name starts with ``<family>`` (up to the first dot);
 * ``decision_kernels/*.json``: the device kernels that make up the
   decision plane, for its roofline.
 
-A later cell adds files and a ``workloads`` entry; no file here changes.
+A later cell adds files and a ``workloads`` entry, and a later model
+family adds its two files; no file here changes.
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
+import re
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
+
+#: the two files of a model family: {kind: (folder, functions they hold)}
+FAMILY_FILES = {
+    "program": ("families", ("model_config", "leaves")),
+    "reference": ("reference", ("check_config", "output_logits",
+                                "matmul_params", "token_flops",
+                                "prompt_flops")),
+}
 
 
 @dataclass
@@ -71,6 +89,8 @@ def load_cell(workload: str, bench_json: Path,
     if sorted(config.get("reduced", [])) != sorted(cfg_entry["reduced"]):
         raise ValueError(f"{cfg_entry['file']}: 'reduced' differs from "
                          "BENCHMARK.json's")
+    for kind in FAMILY_FILES:
+        load_family(kind, config["family"], bench_dir)
     metrics = lambda key: [Metric(**{k: m[k] for k in m})
                            for m in bench[key]]
     e2e = [m for m in metrics("end_to_end") if m.applies(workload)]
@@ -85,6 +105,35 @@ def load_cell(workload: str, bench_json: Path,
                 bench_dir=bench_dir)
 
 
+def _load_file(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_family(kind: str, family: str, bench_dir: Path = BENCH_DIR):
+    """The model family's ``families/<family>.py`` (``kind`` "program")
+    or ``reference/<family>.py`` (``kind`` "reference"), loaded once."""
+    return _load_family(kind, family, Path(bench_dir))
+
+
+@functools.lru_cache(maxsize=None)
+def _load_family(kind: str, family: str, bench_dir: Path):
+    folder, functions = FAMILY_FILES[kind]
+    if not re.fullmatch(r"[A-Za-z0-9_]+", family):
+        raise ValueError(f"model family {family!r}: letters, digits and _")
+    path = bench_dir / folder / f"{family}.py"
+    if not path.exists():
+        raise FileNotFoundError(f"no {kind} file {path} for model family "
+                                f"{family!r}")
+    mod = _load_file(f"perfbench_family_{kind}_{family}", path)
+    missing = [f for f in functions if not callable(getattr(mod, f, None))]
+    if missing:
+        raise AttributeError(f"{path} lacks {', '.join(missing)}")
+    return mod
+
+
 def metric_family(name: str) -> str:
     return name.split(".", 1)[0]
 
@@ -95,11 +144,7 @@ def load_reader(family: str, bench_dir: Path = BENCH_DIR):
     if not path.exists():
         raise FileNotFoundError(f"no reader {path} for metric family "
                                 f"{family!r}")
-    spec = importlib.util.spec_from_file_location(
-        f"perfbench_layer_metric_{family}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load_file(f"perfbench_layer_metric_{family}", path).read
 
 
 def readers(cell: Cell) -> Dict[str, object]:

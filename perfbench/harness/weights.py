@@ -12,7 +12,9 @@ same tensors to the program and to the plain reference. Every normal
 leaf of one dtype is a view of one buffer filled by one ``normal_`` call
 of a ``torch.Generator`` on the device, then scaled in place; the norms
 are ones. Layout (weights ``(in, out)``, per-layer leaves stacked on a
-leading layer axis): the tree ``repro_torch.models.model.Model`` serves.
+leading layer axis): the tree ``repro_torch.models.model.Model`` serves,
+each family's listed by its ``families/<family>.py``. The list's order
+is the fill order, so it is the weights: a family never reorders them.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import math
 from typing import Dict, List, Tuple
 
 import torch
+
+from . import spec
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -29,63 +33,34 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 Leaf = Tuple[Tuple[str, ...], Tuple[int, ...], str, float, float, str]
 
 
-def _lin(path, L, i, o, scale=None) -> Leaf:
+def lin(path, L, i, o, scale=None) -> Leaf:
+    """A stack of L (i, o) weights, normal at 1/sqrt(i) unless ``scale``."""
     return (path, (L, i, o), "normal", 0.0,
             scale if scale is not None else 1.0 / math.sqrt(i), "model")
 
 
-def leaves(cfg: dict) -> List[Leaf]:
-    """Every parameter leaf of the configuration ``cfg`` (a config file)."""
+def ones(path, shape) -> Leaf:
+    return (path, shape, "ones", 0.0, 0.0, "model")
+
+
+def base(cfg: dict) -> List[Leaf]:
+    """The leaves every family's layout starts with: the embedding, an
+    untied head, the two per-layer norms and the final norm."""
     d, V, L = cfg["hidden_size"], cfg["vocab_size"], cfg["num_hidden_layers"]
-    init = cfg["init"]
-    res = init["residual_out_scale"]        # on the projections that
-    #                                         write the residual stream
     out: List[Leaf] = [(("emb", "tok"), (V, d), "normal", 0.0,
-                        init["embedding_std"], "model")]
+                        cfg["init"]["embedding_std"], "model")]
     if not cfg["tie_word_embeddings"]:
         out.append((("emb", "head"), (d, V), "normal", 0.0,
                     1.0 / math.sqrt(d), "model"))
-    ones = lambda path, shape: (path, shape, "ones", 0.0, 0.0, "model")
-    out += [ones(("stack", "ln1"), (L, d)), ones(("stack", "ln2"), (L, d)),
-            ones(("stack", "final_ln"), (d,))]
-    if cfg["family"] == "moe":
-        hd, nh, nkv = (cfg["head_dim"], cfg["num_attention_heads"],
-                       cfg["num_key_value_heads"])
-        E, fe = cfg["num_local_experts"], cfg["intermediate_size"]
-        a = ("stack", "attn")
-        out += [_lin(a + ("w_q",), L, d, nh * hd),
-                _lin(a + ("w_k",), L, d, nkv * hd),
-                _lin(a + ("w_v",), L, d, nkv * hd),
-                _lin(a + ("w_o",), L, nh * hd, d, res / math.sqrt(nh * hd))]
-        m = ("stack", "moe")
-        out += [(m + ("router",), (L, d, E), "normal", 0.0,
-                 1.0 / math.sqrt(d), "float32"),
-                (m + ("w_gate",), (L, E, d, fe), "normal", 0.0,
-                 1.0 / math.sqrt(d), "model"),
-                (m + ("w_up",), (L, E, d, fe), "normal", 0.0,
-                 1.0 / math.sqrt(d), "model"),
-                (m + ("w_down",), (L, E, fe, d), "normal", 0.0,
-                 res / math.sqrt(fe), "model")]
-    elif cfg["family"] == "ssm":
-        r, f = cfg["decay_lora_rank"], cfg["intermediate_size"]
-        p = ("stack", "layers")
-        vec = lambda name, shape, mean, noise: (
-            p + (name,), (L,) + shape, "normal", mean, noise, "model")
-        out += [vec("mu", (5, d), 0.5, 0.1)]
-        out += [_lin(p + (w,), L, d, d) for w in ("w_r", "w_k", "w_v", "w_g")]
-        out += [_lin(p + ("w_o",), L, d, d, res / math.sqrt(d))]
-        out += [vec("w0", (d,), -6.0, 0.3),
-                _lin(p + ("lora_a",), L, d, r, 0.01),
-                _lin(p + ("lora_b",), L, r, d, 0.01),
-                vec("u", (d,), 0.0, 0.3),
-                ones(p + ("ln_x",), (L, d)),
-                vec("mu_c", (2, d), 0.5, 0.1),
-                _lin(p + ("w_ck",), L, d, f),
-                _lin(p + ("w_cv",), L, f, d, res / math.sqrt(f)),
-                _lin(p + ("w_cr",), L, d, d)]
-    else:
-        raise ValueError(f"no weights for family {cfg['family']!r}")
-    return out
+    return out + [ones(("stack", "ln1"), (L, d)),
+                  ones(("stack", "ln2"), (L, d)),
+                  ones(("stack", "final_ln"), (d,))]
+
+
+def leaves(cfg: dict) -> List[Leaf]:
+    """Every parameter leaf of the configuration ``cfg`` (a config file),
+    in fill order, by its family's ``families/<family>.py``."""
+    return spec.load_family("program", cfg["family"]).leaves(cfg)
 
 
 def make(cfg: dict, seed: int, device) -> Dict:

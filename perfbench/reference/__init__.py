@@ -1,15 +1,18 @@
 """The plain reference of the benchmark: float32 forwards of its
-configurations (:mod:`.models`) and the decision plane's semantics
-(:mod:`.decision`). Plain PyTorch; it imports nothing of the program and
-nothing of JAX, and works everything out from the configuration file,
-the weights the benchmark made and the tokens."""
+configurations, one file a model family (``<family>.py``, found by the
+configuration's ``family``; what they share is :mod:`.models`), and the
+decision plane's semantics (:mod:`.decision`). Plain PyTorch; it imports
+nothing of the program and nothing of JAX, and works everything out from
+the configuration file, the weights the benchmark made and the tokens."""
 from __future__ import annotations
 
 from typing import List, Optional
 
 import torch
 
-from . import decision, models
+from perfbench.harness import spec
+
+from . import decision
 
 
 def no_tf32() -> None:
@@ -19,45 +22,31 @@ def no_tf32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+def _family(cfg: dict):
+    return spec.load_family("reference", cfg["family"])
+
+
+def check_config(cfg: dict) -> None:
+    """Refuse a configuration whose stated semantics the family's
+    reference does not compute."""
+    _family(cfg).check_config(cfg)
+
+
 def output_logits(cfg: dict, weights: dict, items: List[dict],
                   quant: Optional[str] = None, rows: int = 16
                   ) -> List[torch.Tensor]:
-    """Logits (n, V) at each output position of each served request.
+    """Logits (n, V) at each output position of each served request, by
+    the family's ``reference/<family>.py``.
 
     ``items``: dicts with ``prompt`` and ``outputs`` (token lists) and,
     for a recurrent model, ``padded``: the length its admission call
     padded the prompt to. The model reads the prompt, then each served
     token but the last; output j's logits are read after the prompt
     (j = 0) or after served token j - 1. A recurrent model scans the
-    call's pad tokens (id 0) between prompt and output, as it was served.
+    call's pad tokens (id 0) between prompt and output, as it was served,
+    ``rows`` items at a time.
     """
-    dev = weights["emb"]["tok"].device
-    out: List[torch.Tensor] = []
-    if cfg["family"] == "ssm":
-        for b0 in range(0, len(items), rows):
-            block = items[b0:b0 + rows]
-            seqs, reads = [], []
-            for it in block:
-                p, o, pad = it["prompt"], it["outputs"], it["padded"]
-                seqs.append(list(p) + [0] * (pad - len(p)) + list(o[:-1]))
-                reads.append([len(p) - 1] + [pad + j - 1
-                                             for j in range(1, len(o))])
-            T = max(len(s) for s in seqs)
-            toks = torch.zeros((len(seqs), T), dtype=torch.long, device=dev)
-            for i, s in enumerate(seqs):
-                toks[i, :len(s)] = torch.tensor(s, device=dev)
-            h = models.rwkv6_hidden(cfg, weights, toks, quant)
-            for i, r in enumerate(reads):
-                out.append(models.head(cfg, weights, h[i, r], quant))
-            del h
-        return out
-    for it in items:
-        p, o = it["prompt"], it["outputs"]
-        toks = torch.tensor(list(p) + list(o[:-1]), dtype=torch.long,
-                            device=dev)
-        h = models.moe_hidden(cfg, weights, toks, quant)
-        out.append(models.head(cfg, weights, h[len(p) - 1:], quant))
-    return out
+    return _family(cfg).output_logits(cfg, weights, items, quant, rows)
 
 
 def request_readings(cfg: dict, weights: dict, items: List[dict],

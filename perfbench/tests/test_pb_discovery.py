@@ -1,12 +1,17 @@
 """Discovery by name, and BENCHMARK.json against its required shape:
 every cell's configuration, mix, settings and readers are files of their
-own, found by the names BENCHMARK.json gives."""
+own, found by the names BENCHMARK.json gives, and so is the code of each
+configuration's model family."""
 import json
 import re
+import shutil
+import subprocess
+import sys
 
 import pytest
 
 from perfbench.harness import spec
+from perfbench.tests import tiny
 
 ROOT = spec.BENCH_DIR.parent
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -99,3 +104,88 @@ def test_unknown_cell_and_reader_are_refused():
         spec.load_cell("no.such.cell", ROOT / "BENCHMARK.json")
     with pytest.raises(FileNotFoundError):
         spec.load_reader("no_such_family")
+
+
+def test_family_without_files_is_refused_at_load(tmp_path):
+    bench = dict(BENCH, configs=[dict(BENCH["configs"][0],
+                                      file="perfbench/configs/x.json")])
+    (tmp_path / "perfbench" / "configs").mkdir(parents=True)
+    (tmp_path / "perfbench" / "configs" / "x.json").write_text(
+        json.dumps(dict(tiny.MOE, family="no_such_family")))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    with pytest.raises(FileNotFoundError,
+                       match=re.escape(str(spec.BENCH_DIR / "families" /
+                                           "no_such_family.py"))):
+        spec.load_cell(bench["workloads"][0]["name"],
+                       tmp_path / "BENCHMARK.json")
+
+
+#: run in a copy of the benchmark to which a family ``toy`` was added as
+#: files alone: ``moe``'s two files under another name
+TOY = """
+import json, sys
+sys.path[:0] = [%r, %r]
+import torch
+from repro_torch.models.model import Model
+from perfbench import reference as R
+from perfbench.frozen import arith
+from perfbench.harness import program, spec, weights as W
+from perfbench.tests import tiny
+cell = spec.load_cell("toy.chat", spec.BENCH_DIR.parent / "BENCHMARK.json")
+toy, moe = cell.config, dict(tiny.MOE, name="toy")
+w, w_moe = W.make(toy, 1, "cpu"), W.make(moe, 1, "cpu")
+m = Model(program.model_config(toy))
+prompt = torch.randint(1, toy["vocab_size"], (1, 9),
+                       generator=torch.Generator().manual_seed(2))
+cache = m.init_cache(1, 32, device="cpu")
+lg, _ = m.prefill(w, {"tokens": prompt.int()}, cache,
+                  true_lens=torch.tensor([9], dtype=torch.int32))
+item = dict(prompt=prompt[0].tolist(), outputs=[int(lg[0].argmax())],
+            padded=9)
+ref, ref_moe = (R.output_logits(c, w, [item]) for c in (toy, moe))
+print(json.dumps({
+    "files": [spec.load_family(k, "toy").__file__ for k in ("program",
+                                                             "reference")],
+    "model_config": program.model_config(toy) == program.model_config(moe),
+    "weights": W.leaves(toy) == W.leaves(moe) and all(
+        torch.equal(a, b) for a, b in zip(
+            torch.utils._pytree.tree_leaves(w),
+            torch.utils._pytree.tree_leaves(w_moe))),
+    "served": bool(torch.allclose(lg[0], ref[0][0], atol=2e-5, rtol=1e-5)),
+    "referenced": bool(torch.equal(ref[0], ref_moe[0])),
+    "counted": [arith.token_flops(toy, 100), arith.prompt_flops(toy, 7)] ==
+               [arith.token_flops(moe, 100), arith.prompt_flops(moe, 7)],
+}))
+"""
+
+
+def test_family_added_as_files_alone_is_found_by_name(tmp_path):
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append(dict(
+        name="toy", source="test", file="perfbench/configs/toy.json",
+        reduced=[], why="moe's files under another family name"))
+    bench["workloads"].append(dict(
+        name="toy.chat", config="toy", traffic="chat", chips=1,
+        why="moe's files under another family name"))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    copy = tmp_path / "perfbench"
+    shutil.copytree(spec.BENCH_DIR, copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p.relative_to(copy): p.read_bytes()
+              for p in copy.rglob("*") if p.is_file()}
+    for folder in ("families", "reference"):
+        shutil.copy(copy / folder / "moe.py", copy / folder / "toy.py")
+    (copy / "configs" / "toy.json").write_text(
+        json.dumps(dict(tiny.MOE, name="toy", family="toy")))
+    shutil.copy(copy / "workloads" / "granite-moe.chat.json",
+                copy / "workloads" / "toy.chat.json")
+    out = subprocess.run(
+        [sys.executable, "-c", TOY % (str(tmp_path), str(ROOT / "src"))],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got.pop("files") == [str(copy / "families" / "toy.py"),
+                                str(copy / "reference" / "toy.py")]
+    assert got == dict.fromkeys(got, True) and len(got) == 5
+    assert all(p.read_bytes() == b for p, b in
+               ((copy / r, b) for r, b in before.items()))

@@ -1,13 +1,14 @@
 """The plain reference against the program at small sizes on the CPU:
 each family's prefill and decode through the cache (RWKV-6 with the
-call's pad tokens scanned), and the decision semantics against the
-program's full-vocabulary filter and penalties. The test imports both;
-the reference imports nothing of the program."""
+call's pad tokens scanned), the family's ``reference/<family>.py`` as
+its configuration's ``family`` finds it, and the decision semantics
+against the program's full-vocabulary filter and penalties. The test
+imports both; the reference imports nothing of the program."""
 import pytest
 import torch
 
 from perfbench import reference as R
-from perfbench.harness import program, weights as W
+from perfbench.harness import program, spec, weights as W
 from perfbench.tests import tiny
 
 
@@ -36,10 +37,14 @@ def _served(cfg, B=3, P=(5, 11, 17), pad=32, steps=7, seed=3):
     return w, items, got
 
 
+def _reference(cfg):
+    return spec.load_family("reference", cfg["family"])
+
+
 @pytest.mark.parametrize("cfg", [tiny.MOE, tiny.RWKV], ids=["moe", "rwkv6"])
 def test_reference_logits_equal_the_programs(cfg):
     w, items, got = _served(cfg)
-    ref = R.output_logits(cfg, w, items)
+    ref = _reference(cfg).output_logits(cfg, w, items)
     for i, r in enumerate(ref):
         assert torch.allclose(got[i], r, atol=2e-5, rtol=1e-5)
 
@@ -48,7 +53,7 @@ def test_rwkv_reference_needs_the_calls_padding():
     cfg = tiny.RWKV
     w, items, got = _served(cfg)
     wrong = [dict(it, padded=len(it["prompt"])) for it in items]
-    ref = R.output_logits(cfg, w, wrong)
+    ref = _reference(cfg).output_logits(cfg, w, wrong)
     assert not torch.allclose(got[0][1:], ref[0][1:], atol=1e-3)
 
 
