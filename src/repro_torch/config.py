@@ -239,6 +239,97 @@ class ModelConfig:
         )
 
 
+LAYER_KINDS = ("mamba", "attention")
+
+
+@dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """A typed stack of Mamba2 and attention layers, each followed by a
+    MoE (family ``"hybrid_moe"``: Granite 4.0-H, HF ``granitemoehybrid``).
+
+    ``layer_types[i]`` is layer i's mixer, ``"mamba"`` or ``"attention"``;
+    every layer then runs ``moe`` (its shared expert included). The
+    Mamba2 mixer is the published one (``ssm.mamba_xbc_seq``: one group
+    of B and C, a causal conv with a bias over x, B and C together) with
+    heads of ``mamba_head_dim``, not attention's. Granite's multipliers
+    scale the embedding, attention's softmax (``attention_multiplier`` in
+    place of 1/sqrt(head_dim)), each residual branch, and divide the
+    logits.
+
+    Every field here defaults to the identity. The class is registered
+    in no arch registry: a benchmark configuration builds it."""
+
+    layer_types: Tuple[str, ...] = ()
+    mamba_head_dim: int = 0        # 0 -> attention's head size
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0   # 0 -> 1/sqrt(head_dim)
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+
+    def __post_init__(self):
+        if len(self.layer_types) != self.num_layers or \
+                set(self.layer_types) - set(LAYER_KINDS):
+            raise ValueError(f"{self.name}: layer_types must name "
+                             f"{self.num_layers} layers of {LAYER_KINDS}")
+        if self.ssm is None or self.moe is None:
+            raise ValueError(f"{self.name}: a hybrid MoE needs ssm and moe")
+        if (self.ssm.expand * self.d_model) % self._mamba_hd:
+            raise ValueError(f"{self.name}: Mamba2 heads of "
+                             f"{self._mamba_hd} do not tile the inner width")
+
+    @property
+    def _mamba_hd(self) -> int:
+        return self.mamba_head_dim or self.resolved_head_dim
+
+    @property
+    def mamba_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types)
+                     if t == "mamba")
+
+    @property
+    def attention_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i, t in enumerate(self.layer_types)
+                     if t == "attention")
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.attention_multiplier or \
+            1.0 / self.resolved_head_dim ** 0.5
+
+    def param_count(self) -> int:
+        d, V, E = self.d_model, self.vocab_size, self.moe.num_experts
+        hd, N, K = self.resolved_head_dim, self.ssm.state_size, \
+            self.ssm.conv_size
+        inner = self.ssm.expand * d
+        H, conv_ch = inner // self._mamba_hd, inner + 2 * N
+        mamba = (d * (2 * inner + 2 * N + H) + (K + 1) * conv_ch + 3 * H
+                 + inner + inner * d)
+        attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                + self.num_heads * hd * d)
+        moe = (E * 3 * d * self.moe.d_ff_expert + d * E
+               + 3 * d * self.moe.shared_expert_d_ff)
+        n = V * d * (1 if self.tie_embeddings else 2) + d
+        n += len(self.mamba_layers) * mamba + \
+            len(self.attention_layers) * attn
+        return n + self.num_layers * (moe + 2 * d)
+
+    def active_param_count(self) -> int:
+        idle = self.moe.num_experts - self.moe.top_k
+        return self.param_count() - \
+            self.num_layers * idle * 3 * self.d_model * self.moe.d_ff_expert
+
+    def reduced(self) -> "HybridMoEConfig":
+        """The base reduction (two layers, d <= 256, 4 experts of top 2,
+        the shared expert kept) of a stack that keeps a layer of each
+        kind it has, with Mamba2 heads of at most 32."""
+        kinds = tuple(k for k in LAYER_KINDS if k in self.layer_types)
+        small = ModelConfig.reduced(replace(
+            self, layer_types=(kinds * 2)[:2], num_layers=2,
+            mamba_head_dim=0))
+        return replace(small, mamba_head_dim=min(
+            self.mamba_head_dim or small.resolved_head_dim, 32))
+
+
 # ---------------------------------------------------------------------------
 # Input shapes (assigned)
 # ---------------------------------------------------------------------------

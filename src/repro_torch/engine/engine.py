@@ -113,6 +113,7 @@ from repro_torch.engine.step_graph import StepGraph, bind, capture
 from repro_torch.models import dist
 from repro_torch.models.attention import flat_block_indices, scatter_block_kv
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import cache_bytes
 from repro_torch.obs import EngineMetrics, StepRecord, Telemetry
 from repro_torch.obs import tracer as obs_tracer
 
@@ -436,6 +437,7 @@ class Engine:
         self.cache = (init_paged_cache(model_cfg, B, self.pcfg,
                                        device=self.device) if self._paged
                       else self.model.init_cache(B, S, device=self.device))
+        self._metrics.cache_bytes(*cache_bytes(self.cache))
         self.pstate = _move_state(self.decision.init_state(B),
                                   self._pstate_home)
         self.last_tokens = torch.zeros((B,), dtype=torch.int32,

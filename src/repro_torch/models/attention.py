@@ -124,12 +124,19 @@ def _attend_scores_softmax(q, k, v, mask, scale):
     return out.to(v.dtype)
 
 
-def attend_full(q, k, v, *, causal: bool, window: int, q_offset: int = 0):
+def _scale(q, scale: Optional[float]) -> float:
+    """The softmax's scale: 1/sqrt(head_dim) unless the model sets one
+    (Granite's ``attention_multiplier``)."""
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def attend_full(q, k, v, *, causal: bool, window: int, q_offset: int = 0,
+                scale: Optional[float] = None):
     """Direct attention. q: (B,Sq,nkv,g,hd); k,v: (B,Skv,nkv,hd); query i
     sits at position ``q_offset + i``."""
     B, Sq = q.shape[0], q.shape[1]
     Skv = k.shape[1]
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale(q, scale)
     qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
     kj = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -142,7 +149,8 @@ def attend_full(q, k, v, *, causal: bool, window: int, q_offset: int = 0):
 
 
 def attend_chunked(q, k, v, *, causal: bool, window: int,
-                   chunk_q: int = 512, chunk_k: int = 512):
+                   chunk_q: int = 512, chunk_k: int = 512,
+                   scale: Optional[float] = None):
     """Blocked attention with a running max ``m``, sum ``l`` and
     accumulator, all float32, over blocks of ``chunk_q`` queries and
     ``chunk_k`` keys; shapes as in :func:`attend_full`.
@@ -161,7 +169,7 @@ def attend_chunked(q, k, v, *, causal: bool, window: int,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
     B, Sq, nkv, g, hd = q.shape
     nq, nk = Sq // chunk_q, k.shape[1] // chunk_k
-    scale = 1.0 / math.sqrt(hd)
+    scale = _scale(q, scale)
     dev = q.device
     ar_q = torch.arange(chunk_q, device=dev)[:, None]
     ar_k = torch.arange(chunk_k, device=dev)[None, :]
@@ -200,7 +208,7 @@ def attend_chunked(q, k, v, *, causal: bool, window: int,
 
 
 def attend_decode(q, cache_k, cache_v, kv_len, *, window: int = 0,
-                  ring: bool = False):
+                  ring: bool = False, scale: Optional[float] = None):
     """Single-step decode attention.
 
     q: (B, 1, nkv, g, hd); cache_k/v: (B, S_cache, nkv, hd);
@@ -208,7 +216,7 @@ def attend_decode(q, cache_k, cache_v, kv_len, *, window: int = 0,
     ring buffer (sliding window) and every slot < min(len, S_cache) is valid.
     """
     S = cache_k.shape[1]
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale(q, scale)
     scores = torch.einsum("bngh,bknh->bngk", q[:, 0].float(),
                           cache_k.float()) * scale
     kj = torch.arange(S, device=q.device)[None, :]
@@ -225,7 +233,8 @@ def attend_decode(q, cache_k, cache_v, kv_len, *, window: int = 0,
     return out[:, None].to(cache_v.dtype)  # (B, 1, nkv, g, hd)
 
 
-def attend_decode_block(q, k_blk, v_blk, valid):
+def attend_decode_block(q, k_blk, v_blk, valid,
+                        scale: Optional[float] = None):
     """Single-token attention over the rank's block of the keys, merged
     across the model group: each rank's partial softmax — its running max
     m, sum l and weighted values — is all-gathered in one call, and every
@@ -234,7 +243,7 @@ def attend_decode_block(q, k_blk, v_blk, valid):
     (B, n) the keys that take part. A rank whose block holds no valid key
     gives m = -1e30 (masked scores are finite), l = 0 and no values, and
     weighs exp(-1e30 - M) = 0 in the merge. Returns (B, 1, nkv, g, hd)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale(q, scale)
     s = torch.einsum("bngh,bknh->bngk", q[:, 0].float(),
                      k_blk.float()) * scale
     mask = valid[:, None, None, :]
@@ -263,7 +272,8 @@ def decode_valid(kv_len, n: int, lo: int, S: int, *, window: int = 0,
     return valid
 
 
-def attend_chunk_cached(q, cache_k, cache_v, offsets):
+def attend_chunk_cached(q, cache_k, cache_v, offsets,
+                        scale: Optional[float] = None):
     """Continue-prefill attention: C query tokens per row at per-row offsets
     against the (already written) KV cache.
 
@@ -274,7 +284,7 @@ def attend_chunk_cached(q, cache_k, cache_v, offsets):
     prefill to full-causal archs.
     """
     C, Sc = q.shape[1], cache_k.shape[1]
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale(q, scale)
     qi = offsets[:, None, None] + torch.arange(C, device=q.device)[None, :,
                                                                    None]
     kj = torch.arange(Sc, device=q.device)[None, None, :]
@@ -358,7 +368,7 @@ def attention_block(params, x, cfg: ModelConfig, positions, *,
                     cache_k=None, cache_v=None, kv_len=None,
                     mode: str = "train", window: Optional[int] = None,
                     qkv=None, rope_tables=None, chunk_threshold: int = 4096,
-                    kv_span=None):
+                    kv_span=None, scale: Optional[float] = None):
     """Self-attention for train/prefill ("train"), decode and "chunk"
     (chunked prefill; ``kv_len`` carries the rows' offsets before the
     chunk). Train/prefill attends with :func:`attend_chunked` from
@@ -369,7 +379,8 @@ def attention_block(params, x, cfg: ModelConfig, positions, *,
     passes the projections the caller computed to write it, so they are
     not recomputed. ``kv_span`` = (lo, S): the cache holds this rank's
     slots lo.. of a cache of S slots split over the model axes (decode
-    only); None: the whole cache. Returns (out, new_k, new_v):
+    only); None: the whole cache. ``scale``: the softmax's, None for
+    1/sqrt(head_dim). Returns (out, new_k, new_v):
     new_k/new_v are this call's K/V entries (B, Sq, nkv, hd).
     """
     window = cfg.sliding_window if window is None else window
@@ -383,16 +394,16 @@ def attention_block(params, x, cfg: ModelConfig, positions, *,
         lo, S = kv_span
         valid = decode_valid(kv_len, cache_k.shape[1], lo, S, window=window,
                              ring=bool(window))
-        out = attend_decode_block(qg, cache_k, cache_v, valid)
+        out = attend_decode_block(qg, cache_k, cache_v, valid, scale=scale)
     elif mode == "decode":
         assert Sq == 1
         out = attend_decode(qg, cache_k, cache_v, kv_len,
-                            window=window, ring=bool(window))
+                            window=window, ring=bool(window), scale=scale)
     elif mode == "chunk":
-        out = attend_chunk_cached(qg, cache_k, cache_v, kv_len)
+        out = attend_chunk_cached(qg, cache_k, cache_v, kv_len, scale=scale)
     elif mode == "train":
         attend = attend_chunked if Sq >= chunk_threshold else attend_full
-        out = attend(qg, k, v, causal=True, window=window)
+        out = attend(qg, k, v, causal=True, window=window, scale=scale)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
     out = out.reshape(B, Sq, cfg.num_heads * cfg.resolved_head_dim)

@@ -1,5 +1,6 @@
 """Model facade: a uniform interface over all six architecture families
-(the reference's ``Model``).
+(the reference's ``Model``), and the port's own typed hybrid stack
+(``hybrid_moe``, Granite 4.0-H).
 
     model = Model(cfg)
     params = model.init(seed=0, device="cuda")              # port's own init
@@ -35,16 +36,19 @@ from repro_torch.models.layers import (dense_init, embed, init_embeddings,
                                       lm_head, torch_dtype)
 from repro_torch.models.transformer import (apply_dense_stack, apply_encoder,
                                             apply_rwkv_stack,
+                                            apply_typed_stack,
                                             apply_zamba_stack, init_cache,
                                             init_dense_stack, init_encoder,
-                                            init_rwkv_stack, init_zamba_stack)
+                                            init_rwkv_stack, init_typed_stack,
+                                            init_zamba_stack)
 
 _DENSE_FAMILIES = ("dense", "moe", "vlm", "audio")
 # family -> (stack init, stack forward)
 _STACKS = {**{f: (init_dense_stack, apply_dense_stack)
               for f in _DENSE_FAMILIES},
            "ssm": (init_rwkv_stack, apply_rwkv_stack),
-           "hybrid": (init_zamba_stack, apply_zamba_stack)}
+           "hybrid": (init_zamba_stack, apply_zamba_stack),
+           "hybrid_moe": (init_typed_stack, apply_typed_stack)}
 DEC_POSITIONS = 32768        # whisper's learned decoder positions (sliced)
 
 
@@ -54,6 +58,10 @@ class Model:
             raise ValueError(cfg.family)
         self.cfg = cfg
         self._init_stack, self._apply_stack = _STACKS[cfg.family]
+        # Granite's multipliers (``HybridMoEConfig``): the embedding is
+        # scaled, the logits divided; 1 (no op) for every other config
+        self._emb_mult = getattr(cfg, "embedding_multiplier", 1.0)
+        self._logit_div = getattr(cfg, "logits_scaling", 1.0)
 
     # -- init ---------------------------------------------------------------
     def init(self, seed: int = 0, device="cuda") -> dict:
@@ -86,6 +94,8 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         x = embed(params["emb"], tokens, cfg.vocab_size)
+        if self._emb_mult != 1.0:
+            x = x * self._emb_mult
         enc_out = None
         if cfg.family == "vlm" and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
@@ -105,9 +115,13 @@ class Model:
         return x, positions, enc_out
 
     def _stack(self, params, x, positions, cache, mode, window=None,
-               remat=False, enc_out=None):
+               remat=False, enc_out=None, lens=None):
         kw = {"enc_out": enc_out} if self.cfg.family in _DENSE_FAMILIES \
             else {}
+        if self.cfg.family == "hybrid_moe":
+            # the rows' lengths: a padded prefill holds each row's state
+            # at its own last token
+            kw["lens"] = lens
         return self._apply_stack(params["stack"], x, positions, self.cfg,
                                  cache, mode, window=window, remat=remat,
                                  **kw)
@@ -124,18 +138,19 @@ class Model:
         emb = params["emb"]
         V = self.cfg.vocab_size
         tp = dist.tp_size()
-        if tp <= 1 or V % tp:
-            return lm_head(emb, y)
-        n = V // tp
-        if "head" in emb:
-            w = emb["head"]
-            block = {"head": w if w.shape[-1] == n
-                     else dist.model_block(w, w.dim() - 1, n)}
-        else:
-            w = emb["tok"]
-            block = {"tok": w if w.shape[0] == n
-                     else dist.model_block(w, 0, n)}
-        return lm_head(block, y)
+        if tp > 1 and V % tp == 0:
+            n = V // tp
+            if "head" in emb:
+                w = emb["head"]
+                emb = {"head": w if w.shape[-1] == n
+                       else dist.model_block(w, w.dim() - 1, n)}
+            else:
+                w = emb["tok"]
+                emb = {"tok": w if w.shape[0] == n
+                       else dist.model_block(w, 0, n)}
+        logits = lm_head(emb, y)
+        return logits if self._logit_div == 1.0 else \
+            logits / self._logit_div
 
     @staticmethod
     def _patches(batch) -> int:
@@ -162,7 +177,8 @@ class Model:
         ``batch["frames"]``: prefill stores their cross K/V for decode."""
         x, positions, enc_out = self._embed_inputs(params, batch)
         y, cache, _ = self._stack(params, x, positions, cache, "prefill",
-                                  window=window, enc_out=enc_out)
+                                  window=window, enc_out=enc_out,
+                                  lens=true_lens)
         if true_lens is not None:
             B = y.shape[0]
             off = self._patches(batch) if self.cfg.family == "vlm" else 0

@@ -17,7 +17,11 @@ Mamba2 (SSD, simplified: ngroups=1, conv over x only), per layer
       a_t  = exp(-exp(A_log) * dt_t)
       h_t  = a_t h_{t-1} + (dt_t x_t) ⊗ B_t      h: (B, H, hd, N)
       y_t  = h_t · C_t + D x_t
-  with gated RMSNorm and output projection.
+  with gated RMSNorm and output projection. The published mixer
+  (:func:`mamba_xbc_seq`: Granite 4.0-H) runs its causal conv over x, B
+  and C together, with a bias, and has a head size of its own
+  (``mamba_head_dim``); given each row's length, a prefill holds a row's
+  state at its own last token.
 
 Under a mesh (``models/dist.py``) RWKV-6 is Megatron's: the time mix's
 ``w_r``/``w_k``/``w_v``/``w_g`` are column blocks, and ``w_o`` is
@@ -223,25 +227,28 @@ def rwkv_channel_mix_seq(p, x, x_last, d_ff: int = 0):
 
 
 def mamba_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
-    """(inner, nheads, headdim, state)."""
+    """(inner, nheads, headdim, state). The head size is attention's
+    unless the config sets one of its own (``mamba_head_dim``)."""
     inner = cfg.ssm.expand * cfg.d_model
-    headdim = cfg.resolved_head_dim
+    headdim = getattr(cfg, "mamba_head_dim", 0) or cfg.resolved_head_dim
     return inner, inner // headdim, headdim, cfg.ssm.state_size
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, device,
-               stacked: int = 0):
-    """Seeded Mamba2 layer weights in the reference's layout."""
+               stacked: int = 0, xbc: bool = False):
+    """Seeded Mamba2 layer weights in the reference's layout; ``xbc``:
+    the published mixer's (:func:`mamba_xbc_seq`), whose conv taps and
+    bias span x, B and C."""
     d = cfg.d_model
     inner, nheads, headdim, N = mamba_dims(cfg)
-    conv = cfg.ssm.conv_size
+    conv, ch = cfg.ssm.conv_size, inner + 2 * N if xbc else inner
     dt = torch_dtype(cfg.dtype)
     pre = (stacked,) if stacked else ()
     f32 = dict(dtype=torch.float32, device=device)
-    return {
+    p = {
         "in_proj": dense_init(gen, pre + (d, 2 * inner + 2 * N + nheads), dt,
                               device),
-        "conv_w": (torch.randn(pre + (conv, inner), generator=gen,
+        "conv_w": (torch.randn(pre + (conv, ch), generator=gen,
                                device=device) / math.sqrt(conv)).to(dt),
         "A_log": torch.zeros(pre + (nheads,), **f32),
         "D": torch.ones(pre + (nheads,), **f32),
@@ -249,6 +256,9 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, device,
         "norm_w": torch.ones(pre + (inner,), dtype=dt, device=device),
         "out_proj": dense_init(gen, pre + (inner, d), dt, device),
     }
+    if xbc:
+        p["conv_b"] = torch.zeros(pre + (ch,), dtype=dt, device=device)
+    return p
 
 
 def _mamba_split(p, x, cfg: ModelConfig):
@@ -260,27 +270,41 @@ def _mamba_split(p, x, cfg: ModelConfig):
             zxbcdt[..., 2 * inner + 2 * N:])
 
 
-def _causal_conv_seq(xc, conv_w, conv_state):
-    """Depthwise causal conv along T. xc: (B, T, inner); conv_state: (B,
-    K-1, inner) carry-in from previous tokens. Returns (y,
-    new_conv_state). The taps are summed in order in xc's dtype, as the
-    reference's Python ``sum`` does."""
+def _causal_conv_seq(xc, conv_w, conv_state, bias=None, lens=None):
+    """Depthwise causal conv along T. xc: (B, T, C); conv_state: (B,
+    K-1, C) carry-in from previous tokens. Returns (y,
+    new_conv_state). The taps, then ``bias``, are summed in order in
+    xc's dtype, as the reference's Python ``sum`` does. The new carry is
+    the K-1 inputs that end at T, or at each row's length where ``lens``
+    (B,) is given (a right-padded prefill: its pads never enter)."""
     K, T = conv_w.shape[0], xc.shape[1]
     xfull = torch.cat([conv_state.to(xc.dtype), xc], dim=1)
     y = xfull[:, 0:T] * conv_w[0].to(xc.dtype)
     for i in range(1, K):
         y = y + xfull[:, i:i + T] * conv_w[i].to(xc.dtype)
-    return F.silu(y.float()).to(xc.dtype), xfull[:, -(K - 1):]
+    if bias is not None:
+        y = y + bias.to(xc.dtype)
+    if lens is None:
+        carry = xfull[:, -(K - 1):]
+    else:
+        idx = lens.long()[:, None] + torch.arange(K - 1, device=xc.device)
+        carry = xfull.gather(1, idx[..., None].expand(-1, -1,
+                                                       xfull.shape[-1]))
+    return F.silu(y.float()).to(xc.dtype), carry
 
 
-def mamba_seq(p, x, conv_state, ssm_state, cfg: ModelConfig):
-    """x: (B, T, d); conv_state: (B, K-1, inner); ssm_state: (B, H, hd, N)
-    f32. Returns (out, conv_state, ssm_state)."""
+def _mamba_recur(p, x, z, xc, Bc, Cc, dt, ssm_state, cfg: ModelConfig,
+                 lens=None):
+    """Both mixers after their conv: the recurrence over T from
+    ``ssm_state``, D, the gate, the group norm and ``out_proj``. With
+    ``lens`` a row's dt is 0 from its length on, so a = 1 and nothing
+    enters. Returns (out, ssm_state)."""
     B, T, d = x.shape
     inner, nheads, headdim, N = mamba_dims(cfg)
-    z, xc, Bc, Cc, dt = _mamba_split(p, x, cfg)
-    xc, conv_state = _causal_conv_seq(xc, p["conv_w"], conv_state)
     dt = F.softplus(dt.float() + p["dt_bias"])                 # (B, T, H)
+    if lens is not None:
+        live = torch.arange(T, device=x.device)[None, :] < lens[:, None]
+        dt = torch.where(live[..., None], dt, 0.0)
     a = torch.exp(-torch.exp(p["A_log"]) * dt)                 # (B, T, H)
     xh = xc.reshape(B, T, nheads, headdim).float()
     Bf, Cf = Bc.float(), Cc.float()
@@ -295,4 +319,31 @@ def mamba_seq(p, x, conv_state, ssm_state, cfg: ModelConfig):
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(B, T, inner) * F.silu(z.float())
     y = rms_norm(y, p["norm_w"], cfg.rmsnorm_eps).to(x.dtype)
-    return matmul(y, p["out_proj"]), conv_state, h
+    return matmul(y, p["out_proj"]), h
+
+
+def mamba_seq(p, x, conv_state, ssm_state, cfg: ModelConfig):
+    """x: (B, T, d); conv_state: (B, K-1, inner); ssm_state: (B, H, hd, N)
+    f32. Returns (out, conv_state, ssm_state)."""
+    z, xc, Bc, Cc, dt = _mamba_split(p, x, cfg)
+    xc, conv_state = _causal_conv_seq(xc, p["conv_w"], conv_state)
+    out, h = _mamba_recur(p, x, z, xc, Bc, Cc, dt, ssm_state, cfg)
+    return out, conv_state, h
+
+
+def mamba_xbc_seq(p, x, conv_state, ssm_state, cfg: ModelConfig,
+                  lens=None):
+    """The published Mamba2 mixer (Granite 4.0-H): z, xBC, dt = in_proj
+    x; the causal conv with its bias, and SiLU, over x, B and C together
+    (conv_state: (B, K-1, inner + 2N)); then as :func:`mamba_seq`.
+    ``lens`` (B,): the rows' lengths in a right-padded prefill, so a
+    row's conv carry and state are held at its own last token, whatever
+    the pads of its call. Returns (out, conv_state, ssm_state)."""
+    inner, nheads, _, N = mamba_dims(cfg)
+    z, xbc, dt = matmul(x, p["in_proj"]).split(
+        [inner, inner + 2 * N, nheads], dim=-1)
+    xbc, conv_state = _causal_conv_seq(xbc, p["conv_w"], conv_state,
+                                       bias=p["conv_b"], lens=lens)
+    xc, Bc, Cc = xbc.split([inner, N, N], dim=-1)
+    out, h = _mamba_recur(p, x, z, xc, Bc, Cc, dt, ssm_state, cfg, lens)
+    return out, conv_state, h

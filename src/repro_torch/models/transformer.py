@@ -22,6 +22,9 @@ activations.
 * ``ssm`` (RWKV-6): :func:`apply_rwkv_stack`, attention-free.
 * ``hybrid`` (Zamba2): :func:`apply_zamba_stack`, Mamba2 layers with one
   weight-shared attention block before every group of ``attn_every``.
+* ``hybrid_moe`` (Granite 4.0-H, ``config.HybridMoEConfig``):
+  :func:`apply_typed_stack`, a layer's own mixer by ``layer_types``
+  (Mamba2 or NoPE attention), a MoE after every one.
 
 The contiguous cache is a dict ``{"len": (B,) int32, "pos": () int32}``
 plus the family's leaves (:func:`init_cache`), every one (L|G, B, ...)
@@ -69,8 +72,10 @@ from repro_torch.models.layers import (apply_mlp, dense_init, init_mlp,
                                       torch_dtype)
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.ssm import (init_mamba, init_rwkv, mamba_dims,
-                                    mamba_seq, rwkv_channel_mix_seq,
-                                    rwkv_state_shape, rwkv_time_mix_seq)
+                                    mamba_seq, mamba_xbc_seq,
+                                    rwkv_channel_mix_seq, rwkv_state_shape,
+                                    rwkv_time_mix_seq)
+from repro_torch.obs.tracer import current as current_tracer
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +137,12 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     slots (ring buffer). RWKV keeps its f32 wkv state and the two token
     shifts; Zamba2 its f32 SSM state, the conv carry and the K/V of its
     G = ceil(L / attn_every) shared-attention sites, over a window of
-    4096 unless the arch or the caller sets one. An encoder-decoder
-    (whisper) adds the cross K/V of its ``num_frames`` encoder frames.
+    4096 unless the arch or the caller sets one. A typed stack
+    (``hybrid_moe``) keeps two kinds of state side by side: the K/V of
+    its A attention layers (A, B, S, nkv, hd), and the conv carry (M, B,
+    K-1, channels) and f32 SSM state (M, B, H, hd, N) of its M Mamba2
+    layers. An encoder-decoder (whisper) adds the cross K/V of its
+    ``num_frames`` encoder frames.
 
     Under a mesh the cache is this rank's block of ``batch`` rows (the
     rows are the caller's): the split dimensions of the module docstring
@@ -172,9 +181,33 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
         cache["conv"] = zeros(L, batch, cfg.ssm.conv_size - 1, _cut(inner))
         cache["k"] = zeros(G, batch, Sc, nkv, hd)
         cache["v"] = zeros(G, batch, Sc, nkv, hd)
+    elif cfg.family == "hybrid_moe":   # typed stack, on one device
+        inner, nheads, headdim, N = mamba_dims(cfg)
+        A, M = len(cfg.attention_layers), len(cfg.mamba_layers)
+        Sc = cache_len_for(cfg, seq_len, window)
+        cache["k"] = zeros(A, batch, Sc, nkv, hd)
+        cache["v"] = zeros(A, batch, Sc, nkv, hd)
+        cache["conv"] = zeros(M, batch, cfg.ssm.conv_size - 1,
+                              inner + 2 * N)
+        cache["ssm"] = zeros(M, batch, nheads, headdim, N,
+                             dt=torch.float32)
     else:
         raise ValueError(cfg.family)
     return cache
+
+
+#: the cache leaves that hold attention's K/V; every other leaf but the
+#: bookkeeping is a recurrent state
+KV_LEAVES = ("k", "v", "k_pool", "v_pool", "cross_k", "cross_v")
+BOOK_LEAVES = ("len", "pos", "block_table")
+
+
+def cache_bytes(cache: dict):
+    """(K/V bytes, recurrent-state bytes) of a cache's leaves."""
+    size = lambda names: sum(t.numel() * t.element_size()
+                             for k, t in cache.items() if k in names)
+    state = [k for k in cache if k not in KV_LEAVES + BOOK_LEAVES]
+    return size(KV_LEAVES), size(state)
 
 
 def _write_kv(cache_k_l, cache_v_l, k, v, lens, mode: str,
@@ -559,6 +592,31 @@ def apply_rwkv_stack(params, x, positions, cfg: ModelConfig, cache,
     return rms_norm(x, params["final_ln"], eps), cache, _train_aux(mode, x)
 
 
+def _cached_attention(p, h, cfg: ModelConfig, positions, cache, g: int,
+                      lens0, mode: str, *, window: int, rt=None, span=None,
+                      scale: Optional[float] = None):
+    """A recurrent stack's attention over site g of the contiguous
+    cache's ``k``/``v``. Decode writes the token's K/V first, so that it
+    attends to itself, and attends over ``lens0 + 1``; train and prefill
+    attend within the call, and prefill writes the call's K/V at
+    ``lens0``. ``span``: as :func:`attention_block`'s ``kv_span``."""
+    if mode == "decode":
+        ck, cv = cache["k"][g], cache["v"][g]
+        qkv = _project_qkv(p, h, cfg, positions, rt)
+        _write_kv(ck, cv, qkv[1], qkv[2], lens0, "decode", span=span)
+        out, _, _ = attention_block(p, h, cfg, positions, cache_k=ck,
+                                    cache_v=cv, kv_len=lens0 + 1,
+                                    mode="decode", window=window, qkv=qkv,
+                                    kv_span=span, scale=scale)
+        return out
+    out, k, v = attention_block(p, h, cfg, positions, mode="train",
+                                window=window, rope_tables=rt, scale=scale)
+    if mode == "prefill":
+        _write_kv(cache["k"][g], cache["v"][g], k, v, lens0, "prefill",
+                  span=span)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Zamba2 hybrid stack: groups of mamba layers + a shared attention block
 # ---------------------------------------------------------------------------
@@ -599,6 +657,7 @@ def apply_zamba_stack(params, x, positions, cfg: ModelConfig, cache,
         inner, nheads, headdim, N = mamba_dims(cfg)
         conv0 = x.new_zeros((B, cfg.ssm.conv_size - 1, inner))
         ssm0 = torch.zeros((B, nheads, headdim, N), device=x.device)
+        lens0 = span = None
     else:
         lens0 = cache["len"]
         span = kv_span(cache["k"].shape[2])
@@ -633,23 +692,9 @@ def apply_zamba_stack(params, x, positions, cfg: ModelConfig, cache,
 
     for g, lo in enumerate(range(0, L, every)):
         h = rms_norm(x, params["shared_ln1"], eps)
-        if mode == "decode":
-            ck, cv = cache["k"][g], cache["v"][g]
-            # write first so the token attends to itself
-            qkv = _project_qkv(attn_p, h, cfg, positions, rt)
-            _write_kv(ck, cv, qkv[1], qkv[2], lens0, "decode", span=span)
-            attn_out, _, _ = attention_block(
-                attn_p, h, cfg, positions, cache_k=ck, cache_v=cv,
-                kv_len=lens0 + 1, mode="decode", window=win, qkv=qkv,
-                kv_span=span)
-        else:
-            attn_out, k, v = attention_block(attn_p, h, cfg, positions,
-                                             mode="train", window=win,
-                                             rope_tables=rt)
-            if not train:
-                _write_kv(cache["k"][g], cache["v"][g], k, v, lens0,
-                          "prefill", span=span)
-        x = x + attn_out
+        x = x + _cached_attention(attn_p, h, cfg, positions, cache, g,
+                                  lens0, mode, window=win, rt=rt,
+                                  span=span)
         x = x + apply_mlp(params["shared_mlp"],
                           rms_norm(x, params["shared_ln2"], eps), cfg.act,
                           cfg.d_ff)
@@ -664,6 +709,117 @@ def apply_zamba_stack(params, x, positions, cfg: ModelConfig, cache,
     if not train:
         cache = _bump_len(cache, x.shape[1])
     return rms_norm(x, params["final_ln"], eps), cache, _train_aux(mode, x)
+
+
+# ---------------------------------------------------------------------------
+# Typed stack (Granite 4.0-H): per-layer Mamba2 or NoPE attention, MoE after
+# ---------------------------------------------------------------------------
+
+#: the most tokens a prefill's dropless MoE takes in one call: larger
+#: calls go in row groups (each expert's bucket holds every token of its
+#: call, E·T rows of d, ~2.5 MB a token at Granite 4.0-H Small's widths)
+MOE_PREFILL_TOKENS = 4096
+
+
+def init_typed_stack(gen: torch.Generator, cfg: ModelConfig, device):
+    """Seeded typed-stack weights: the M Mamba2 mixers stacked on one
+    leading axis, the A attention mixers on another (in layer order), the
+    MoE (its shared expert included) and both norms on the L axis."""
+    dt = torch_dtype(cfg.dtype)
+    L, d = cfg.num_layers, cfg.d_model
+    ones = lambda *shape: torch.ones(shape, dtype=dt, device=device)
+    p = {"ln1": ones(L, d), "ln2": ones(L, d)}
+    M, A = len(cfg.mamba_layers), len(cfg.attention_layers)
+    if M:
+        p["mamba"] = init_mamba(gen, cfg, device, stacked=M, xbc=True)
+    if A:
+        p["attn"] = init_attention(gen, cfg, device, stacked=A)
+    p["moe"] = init_moe(gen, cfg, device, stacked=L)
+    p["final_ln"] = ones(d)
+    return p
+
+
+def _typed_moe(lp, h, cfg: ModelConfig, mode: str):
+    """The MoE of one layer; a prefill call of more than
+    ``MOE_PREFILL_TOKENS`` tokens runs in row groups where routing is
+    dropless (capacity >= experts / top-k), so no row's result depends
+    on the others of its call."""
+    B, T = h.shape[0], h.shape[1]
+    m = cfg.moe
+    dropless = m.capacity_factor * m.top_k >= m.num_experts
+    if mode != "prefill" or B * T <= MOE_PREFILL_TOKENS or not dropless:
+        return apply_moe(lp, h, cfg, train=mode == "train")
+    rows = max(1, MOE_PREFILL_TOKENS // T)
+    return torch.cat([apply_moe(lp, h[r:r + rows], cfg)[0]
+                      for r in range(0, B, rows)]), 0.0
+
+
+def apply_typed_stack(params, x, positions, cfg: ModelConfig, cache,
+                      mode: str, window: Optional[int] = None,
+                      remat: bool = False, lens=None):
+    """x: (B, S, d). Layer i runs its mixer by ``cfg.layer_types[i]`` —
+    Mamba2 (the published mixer, its conv carry and SSM state in the
+    cache's ``conv``/``ssm`` at the layer's Mamba2 index) or attention
+    without positions (NoPE: ``rope_theta`` 0) scaled by
+    ``attention_multiplier`` (K/V at its attention index) — then the MoE
+    (shared expert included); ``residual_multiplier`` scales both
+    branches. ``lens`` (B,): the rows' lengths of a right-padded prefill,
+    so a row's Mamba2 state is held at its own last token. Each Mamba2
+    mixer is a ``mamba`` span (``obs.tracer.current()``; device-timed).
+    Train mode starts the states at zero. Returns (y, cache, aux)."""
+    assert mode in ("train", "prefill", "decode"), \
+        f"the typed stack runs train, prefill and decode, not {mode!r}"
+    if dist.get_ctx().active:
+        raise NotImplementedError("the typed stack under a mesh")
+    eps, rm = cfg.rmsnorm_eps, cfg.residual_multiplier
+    train = mode == "train"
+    B, S = x.shape[0], x.shape[1]
+    if train:
+        inner, nheads, headdim, N = mamba_dims(cfg)
+        conv0 = x.new_zeros((B, cfg.ssm.conv_size - 1, inner + 2 * N))
+        ssm0 = torch.zeros((B, nheads, headdim, N), device=x.device)
+        lens0 = None
+    else:
+        lens0 = cache["len"]
+    # layer i's index among the layers of its kind: the leading axis of
+    # its mixer's weights and of its cache leaves
+    index = {i: j for layers in (cfg.mamba_layers, cfg.attention_layers)
+             for j, i in enumerate(layers)}
+    mixers = {kind: _unstack(params[key]) if key in params else []
+              for kind, key in (("mamba", "mamba"), ("attention", "attn"))}
+    tracer = current_tracer()
+
+    def mamba(h, lp, j, i):
+        st = (conv0, ssm0) if train else (cache["conv"][j],
+                                          cache["ssm"][j])
+        with tracer.span("mamba", device=x.device, layer=i, rows=B,
+                         tokens=B * S, program=mode):
+            out, conv, ssm = mamba_xbc_seq(lp, h, *st, cfg, lens=lens)
+            if not train:
+                cache["conv"][j].copy_(conv)
+                cache["ssm"][j].copy_(ssm)
+        return out
+
+    def layer(x, ln1, ln2, moe_p, kind, lp, j, i):
+        h = rms_norm(x, ln1, eps)
+        x = x + rm * (mamba(h, lp, j, i) if kind == "mamba" else
+                      _cached_attention(lp, h, cfg, positions, cache, j,
+                                        lens0, mode, window=0,
+                                        scale=cfg.softmax_scale))
+        ff, aux_l = _typed_moe(moe_p, rms_norm(x, ln2, eps), cfg, mode)
+        return x + rm * ff, aux_l
+
+    aux = _train_aux(mode, x)
+    per_layer = zip(cfg.layer_types, _unstack(params["ln1"]),
+                    _unstack(params["ln2"]), _unstack(params["moe"]))
+    for i, (kind, ln1, ln2, moe_p) in enumerate(per_layer):
+        j = index[i]
+        x, aux_l = _run_layer(layer, remat and train, x, ln1, ln2, moe_p,
+                              kind, mixers[kind][j], j, i)
+        aux = aux + aux_l
+    if not train:
+        cache = _bump_len(cache, S)
+    return rms_norm(x, params["final_ln"], eps), cache, aux
 
 
 # ---------------------------------------------------------------------------

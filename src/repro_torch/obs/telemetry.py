@@ -47,7 +47,7 @@ class EngineMetrics:
     """
 
     def __init__(self, registry: MetricsRegistry):
-        m = registry
+        m = self._registry = registry
         self.steps = m.counter(
             "engine_steps_total", "committed engine iterations")
         self.tokens = m.counter(
@@ -105,6 +105,18 @@ class EngineMetrics:
         self.graph_captures = m.counter(
             "engine_decode_graph_captures_total",
             "CUDA graphs captured of the decode step's programs")
+
+    def cache_bytes(self, kv: int, state: int) -> None:
+        """The engine's cache by kind of state, set once at its start
+        (the gauges exist only where an engine holds a cache): the
+        attention K/V and the recurrent states beside it."""
+        self._registry.gauge(
+            "engine_cache_kv_bytes",
+            "bytes of the cache's attention K/V").set(float(kv))
+        self._registry.gauge(
+            "engine_cache_state_bytes",
+            "bytes of the cache's recurrent states (SSM, conv carry, token "
+            "shifts)").set(float(state))
 
     def observe_step(self, rec: StepRecord) -> None:
         """Fold one committed step's record into the instruments."""

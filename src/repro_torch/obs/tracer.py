@@ -46,6 +46,13 @@ argument is made of, one kind per seam —
                       ``models/`` through :func:`current` (a decode
                       step replayed as CUDA graphs records it between
                       the graphs' replays)
+    ``mamba``         a typed stack's Mamba2 mixer, from ``in_proj`` to
+                      ``out_proj`` and its state written back; ``layer``,
+                      ``rows`` (the rows the call computes: every slot in
+                      a decode step), ``tokens`` (rows x positions),
+                      ``program`` (``prefill`` | ``decode`` | ``train``);
+                      device-timed, through :func:`current` as
+                      ``moe_route``
 
 Device-timed spans (``span(..., device=d)`` with a CUDA ``d``) also
 record a ``torch.cuda.Event`` pair on the device's current stream at
@@ -89,7 +96,7 @@ SPAN_KINDS = frozenset({
     "prefill", "forward", "stage", "d2h_transfer", "host_sample",
     "pool_stall", "commit", "queue_wait", "decision", "request",
     "kv_migrate", "handoff_wait", "dispatch", "fetch_wait",
-    "device_sample", "moe_route",
+    "device_sample", "moe_route", "mamba",
 })
 
 

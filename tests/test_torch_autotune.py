@@ -326,7 +326,7 @@ def test_tracer_and_chrome_trace_match_reference():
     # the port adds its own kinds; every kind of the reference stays
     assert jtr.SPAN_KINDS < ttr.SPAN_KINDS
     assert ttr.SPAN_KINDS - jtr.SPAN_KINDS == {
-        "dispatch", "fetch_wait", "device_sample", "moe_route"}
+        "dispatch", "fetch_wait", "device_sample", "moe_route", "mamba"}
 
 
 def _drive_registry(m):
